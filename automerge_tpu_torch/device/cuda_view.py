@@ -1,0 +1,282 @@
+"""Fused patch-read kernel: winner/visibility diff -> pre-ordered,
+delta-sized edit buffers, in ONE device launch (PyTorch + CUDA).
+
+The port of ``automerge_tpu/device/pallas_view.py``. Per dirty sequence
+object (one row per job) each node falls into one class — remove
+``pv & ~nv``, insert ``nv & ~pv``, set ``nv & pv & touched`` — and each
+class is ranked in document order with an exclusive prefix sum over a
+presence grid keyed by the dense vis index (no sort: vis indexes are
+already dense ranks), then compacted into -1-padded ``[K, e_pad]``
+buffers plus the per-class counts. ``GeneralPatch._ensure`` reads those
+delta-sized buffers instead of the full O(doc) vis planes.
+
+Two implementations, bit-identical by construction:
+
+* :func:`edit_stream` / :func:`edit_stream_packed` — the plain PyTorch
+  version (scatter + cumsum + gather). It is the specification, the CPU
+  path of :func:`dispatch_edit_stream`, and what ``chip_smoke.py``
+  holds the kernel against on the card.
+* :func:`edit_stream_cuda` — the hand-written CUDA kernel
+  (``csrc/edit_stream.cu``), built with nvcc for ``sm_90a`` on first use
+  into ``_build/`` and bound with ctypes. It replaces the TPU kernel
+  ``_make_edit_kernel`` / ``_edit_stream_pallas_core`` /
+  ``edit_stream_pallas`` (``automerge_tpu/device/pallas_view.py``
+  :145-258), whose one-hot MXU matmuls existed only because the TPU
+  lacks a fast gather: here one thread block per job row decodes the
+  vis planes and the touched bits itself, marks a presence grid, runs a
+  block-wide scan and scatters directly.
+
+:func:`dispatch_edit_stream` launches the kernel for every CUDA tensor
+(raising if the build or the launch fails — there is no fallback) and
+runs the plain version only for tensors on the CPU. The wide vis format
+belongs to the wide-mirror slice and is not ported yet (ROADMAP A.4).
+"""
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+_I32 = torch.int32
+
+_W2_ELEM = 0x7FFF
+_W2_VIS_SHIFT = 30
+_W2_IDX_SHIFT = 15
+
+# launches of the CUDA kernel since the last reset (one per launch, in
+# edit_stream_cuda only) — the proof that a run went through the kernel
+launches = 0
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, 'csrc', 'edit_stream.cu')
+_BUILD_DIR = os.path.join(_PKG_DIR, '_build')
+_SO = os.path.join(_BUILD_DIR, 'libedit_stream.so')
+_NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+               '-O3', '-shared', '-Xcompiler', '-fPIC']
+_lib = None
+_lib_lock = threading.Lock()
+
+# input formats of the kernel's C entry point
+_FMT_PACKED, _FMT_COLS = 0, 1
+
+
+def reset_launches():
+    global launches
+    launches = 0
+
+
+def _nvcc():
+    for cand in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if cand:
+            path = os.path.join(cand, 'bin', 'nvcc')
+            if os.path.exists(path):
+                return path
+    return 'nvcc'
+
+
+def build(force=False):
+    """Compile ``csrc/edit_stream.cu`` into ``_build/`` (once per
+    source version) and return the path of the shared library. Raises
+    ``RuntimeError`` with nvcc's output when the build fails."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    if not force and os.path.exists(_SO) and \
+            os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return _SO
+    tmp = f'{_SO}.tmp.{os.getpid()}'
+    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f'edit_stream.cu failed to build ({" ".join(cmd)}):\n'
+            f'{res.stdout}{res.stderr}')
+    os.replace(tmp, _SO)
+    return _SO
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.edit_stream_launch
+            # fmt, 5 input planes, touched, 5 outputs, cnt, grid,
+            # K, m, mb, e_pad, stream
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                           [ctypes.c_void_p] * 8 +
+                           [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _unpack_touch(touched_u8, m):
+    """MSB-first bit unpack of the host-built touched plane (one bit
+    per (job, node) slot; np.packbits layout along the node axis)."""
+    i = torch.arange(m, device=touched_u8.device)
+    return ((touched_u8[:, i >> 3].to(torch.int32) >> (7 - (i & 7))) & 1) \
+        .to(torch.bool)
+
+
+def _edit_core(pv, nv, pi, ni, touched, e_pad):
+    """The plain edit-stream pipeline over [K, m] planes. Returns
+    (rm_idx, ins_node, ins_idx, set_node, set_idx, cnts[K, 3]), all
+    int32; the [K, e_pad] buffers are -1 padded, each class compacted in
+    document order (removes ascending by PRIOR index — the host reads
+    them reversed for the descending emit; inserts/sets ascending by
+    NEW index). Counts are not clamped; ranks >= e_pad are dropped."""
+    K, m = pv.shape
+    dev = pv.device
+    iota_l = torch.arange(m, dtype=_I32, device=dev)[None, :].expand(K, m)
+    removed = pv & ~nv
+    inserted = nv & ~pv
+    setd = nv & pv & touched
+
+    def compact(mask, key, vals):
+        # ranks via presence-grid prefix sum: `key` is a dense per-object
+        # rank (a vis index), unique among mask rows — column m is the
+        # sink for unmasked rows
+        key_c = key.to(torch.int64).clamp(0, m - 1)
+        grid = torch.zeros((K, m + 1), dtype=_I32, device=dev)
+        grid.scatter_(1, torch.where(mask, key_c, torch.full_like(key_c, m)),
+                      torch.ones((K, m), dtype=_I32, device=dev))
+        grid = grid[:, :m]
+        rank_g = torch.cumsum(grid, dim=1, dtype=_I32) - grid
+        rank = torch.gather(rank_g, 1, key_c)
+        tgt = torch.where(mask & (rank < e_pad), rank.to(torch.int64),
+                          torch.full_like(key_c, e_pad))
+        outs = []
+        for v in vals:
+            o = torch.full((K, e_pad + 1), -1, dtype=_I32, device=dev)
+            o.scatter_(1, tgt, v.to(_I32))
+            outs.append(o[:, :e_pad])
+        return outs, mask.sum(dim=1, dtype=_I32)
+
+    (rm_idx,), rm_cnt = compact(removed, pi, (pi,))
+    (ins_node, ins_idx), ins_cnt = compact(inserted, ni, (iota_l, ni))
+    (set_node, set_idx), set_cnt = compact(setd, ni, (iota_l, ni))
+    cnts = torch.stack([rm_cnt, ins_cnt, set_cnt], dim=1)
+    return rm_idx, ins_node, ins_idx, set_node, set_idx, cnts
+
+
+def edit_stream(pv, nv, pi, ni, touched_u8, *, e_pad):
+    """Plain edit stream over unpacked planes (cols vis format)."""
+    m = pv.shape[1]
+    return _edit_core(pv.to(torch.bool), nv.to(torch.bool), pi.to(_I32),
+                      ni.to(_I32), _unpack_touch(touched_u8, m), e_pad)
+
+
+def _decode_packed(v):
+    pv = ((v >> 31) & 1).to(torch.bool)
+    nv = ((v >> _W2_VIS_SHIFT) & 1).to(torch.bool)
+    pi = ((v >> _W2_IDX_SHIFT) & _W2_ELEM) - 1
+    ni = (v & _W2_ELEM) - 1
+    return pv, nv, pi, ni
+
+
+def edit_stream_packed(vis_packed, touched_u8, *, e_pad):
+    """Plain edit stream over the packed apply's vis word plane
+    (prior_vis<<31 | visible<<30 | (prior_idx+1)<<15 | (new_idx+1))."""
+    m = vis_packed.shape[1]
+    pv, nv, pi, ni = _decode_packed(vis_packed.to(_I32))
+    return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
+
+
+def _check(t, name, dtype, shape, dev):
+    if t.device != dev:
+        raise ValueError(f'{name} is on {t.device}, expected {dev}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} has dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                         f'{tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+
+
+def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
+    """Launch the CUDA edit-stream kernel on one apply's vis planes:
+    ``vis_fmt='packed'`` takes the int32 [K, m] vis word plane,
+    ``'cols'`` the (prior_vis bool, visible bool, prior_idx int32,
+    new_idx int32) [K, m] planes. ``touched_u8`` is the uint8
+    [K, ceil(m/8)] packbits plane. Returns the same six int32 tensors as
+    :func:`edit_stream_packed` / :func:`edit_stream`, on the card.
+
+    Bound: per call the kernel must read ``K*m*4 + K*ceil(m/8)`` bytes
+    (packed) and write ``5*K*e_pad*4 + 12*K`` bytes; it does O(K*m)
+    integer work, so it is bound by memory traffic and launch latency,
+    not arithmetic."""
+    global launches
+    if vis_fmt == 'packed':
+        v = planes
+        K, m = v.shape
+        dev = v.device
+        _check(v, 'vis_packed', _I32, (K, m), dev)
+        ptrs = [v.data_ptr(), 0, 0, 0, 0]
+        fmt = _FMT_PACKED
+    elif vis_fmt == 'cols':
+        pv, nv, pi, ni = planes
+        K, m = pv.shape
+        dev = pv.device
+        _check(pv, 'prior_vis', torch.bool, (K, m), dev)
+        _check(nv, 'visible', torch.bool, (K, m), dev)
+        _check(pi, 'prior_idx', _I32, (K, m), dev)
+        _check(ni, 'new_idx', _I32, (K, m), dev)
+        ptrs = [0, pv.data_ptr(), nv.data_ptr(), pi.data_ptr(),
+                ni.data_ptr()]
+        fmt = _FMT_COLS
+    else:
+        raise NotImplementedError(
+            f'edit stream over the {vis_fmt!r} vis format is not ported '
+            'yet (wide mirror: ROADMAP A.4)')
+    if dev.type != 'cuda':
+        raise ValueError('edit_stream_cuda needs CUDA tensors')
+    mb = (m + 7) >> 3
+    _check(touched_u8, 'touched_u8', torch.uint8, (K, mb), dev)
+    if e_pad < 1 or m < 1:
+        raise ValueError(f'bad edit-stream shape m={m} e_pad={e_pad}')
+    outs = [torch.empty((K, e_pad), dtype=_I32, device=dev)
+            for _ in range(5)]
+    cnt = torch.empty((K, 3), dtype=_I32, device=dev)
+    if K == 0:                  # no job rows: nothing to launch
+        return (*outs, cnt)
+    lib = _load()
+    grid = torch.empty((K, m), dtype=_I32, device=dev)    # scan scratch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.edit_stream_launch(
+            fmt, *ptrs, touched_u8.data_ptr(),
+            *[o.data_ptr() for o in outs], cnt.data_ptr(),
+            grid.data_ptr(), K, m, mb, e_pad, stream)
+    if err != 0:
+        raise RuntimeError(f'edit_stream kernel launch failed: CUDA error '
+                           f'{err}')
+    launches += 1
+    return (*outs, cnt)
+
+
+def dispatch_edit_stream(vis_fmt, planes, touched_u8, e_pad):
+    """Run the edit stream over one apply's vis planes (the fused
+    apply's device outputs) — the entry point ``GeneralPatch._ensure``
+    calls. CUDA planes always go through the CUDA kernel; CPU planes
+    take the plain version. ``touched_u8`` is the host numpy packbits
+    plane; it moves to the planes' device."""
+    lead = planes if vis_fmt == 'packed' else planes[0]
+    dev = lead.device
+    t_u8 = torch.as_tensor(np.ascontiguousarray(touched_u8),
+                           dtype=torch.uint8).to(dev)
+    if dev.type == 'cuda':
+        if vis_fmt == 'cols':
+            planes = tuple(p.contiguous() for p in planes)
+        else:
+            planes = planes.contiguous()
+        return edit_stream_cuda(vis_fmt, planes, t_u8, e_pad)
+    if vis_fmt == 'packed':
+        return edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    if vis_fmt == 'cols':
+        return edit_stream(*planes, t_u8, e_pad=e_pad)
+    raise NotImplementedError(
+        f'edit stream over the {vis_fmt!r} vis format is not ported yet '
+        '(wide mirror: ROADMAP A.4)')

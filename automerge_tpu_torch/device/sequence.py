@@ -1,0 +1,196 @@
+"""RGA sequence ordering: sort + pointer doubling (PyTorch).
+
+The port of ``automerge_tpu/device/sequence.py``. The document order of
+list/text elements is the depth-first traversal of the insertion tree
+where each node's children sort Lamport-descending by (elem, actor)
+(op_set.js:371-390). All n positions come out of O(log n) parallel
+rounds:
+
+1. **Sort** nodes by (parent, elem desc, actor desc) — a stable sort per
+   key, last key first (``jnp.lexsort`` is stable; so is this).
+2. **Thread the tree**: first-child and next-sibling links fall out of
+   the sorted order; the DFS successor is ``first_child`` if present,
+   else the next sibling of the nearest ancestor that has one, found by
+   pointer doubling over parent links.
+3. **List-rank** the successor chain with pointer doubling.
+4. **Visibility scan**: a prefix sum over tombstone flags maps tree
+   positions to user-visible list indexes.
+
+The JAX package routes the doubling gathers of small trees through
+one-hot MXU matmuls because the TPU has no fast gather; every shape here
+uses direct batched ``torch.gather`` pointer doubling — integer-exact,
+and the same values as every JAX variant. Scatters the reference drops
+land in a sink column that is sliced off, and every output is int32.
+
+Node 0 is the virtual ``'_head'`` element; padding slots carry
+``valid=False`` and sort to the end. The delta orderer behind the
+incremental index (``_rga_delta_order*``) belongs to the incremental
+slice and is not ported yet (ROADMAP A.4).
+"""
+
+import torch
+
+_I32 = torch.int32
+
+
+def _ceil_log2(n):
+    bits = 0
+    while (1 << bits) < n:
+        bits += 1
+    return max(bits, 1)
+
+
+def _stable_lexsort(keys):
+    """Row-wise ``jnp.lexsort(keys)`` over [K, n] planes: the LAST key
+    is primary; ties keep their index order. One stable sort per key,
+    applied from the first (least significant) key to the last."""
+    order = None
+    for k in keys:
+        k_cur = k if order is None else torch.gather(k, 1, order)
+        _, o = torch.sort(k_cur, dim=1, stable=True)
+        order = o if order is None else torch.gather(order, 1, o)
+    return order
+
+
+def _thread_and_rank(parent, parent_adj, order, valid):
+    """Tree threading + list ranking over [K, n] planes (steps 2-3 of
+    `_rga_order`): from a child-sorted ``order``, derive first-child /
+    next-sibling links, resolve each node's DFS successor by
+    pointer-doubling the ancestor climb, then list-rank the successor
+    chain. Returns int32[K, n] ``tree_pos`` (head = 0, then
+    1..chain_len; padding carries garbage)."""
+    K, n = parent.shape
+    dev = parent.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)[None, :] \
+        .expand(K, n)
+    rounds = _ceil_log2(n) + 1
+    p_sorted = torch.gather(parent_adj, 1, order)
+
+    # --- thread the tree ----------------------------------------------------
+    is_seg_start = torch.ones((K, n), dtype=torch.bool, device=dev)
+    is_seg_start[:, 1:] = p_sorted[:, 1:] != p_sorted[:, :-1]
+    # first_child[p] = first sorted node whose parent is p (-1 if none);
+    # column n is the sink the reference's mode='drop' slot maps to
+    first_child = torch.full((K, n + 1), -1, dtype=torch.int64, device=dev)
+    first_child.scatter_(
+        1, torch.where(is_seg_start, p_sorted, torch.full_like(p_sorted, n)),
+        torch.where(is_seg_start, order, torch.full_like(order, -1)))
+    first_child = first_child[:, :n]
+    # next_sibling[node] = next sorted node under the same parent
+    same_parent_next = torch.zeros((K, n), dtype=torch.bool, device=dev)
+    same_parent_next[:, :-1] = p_sorted[:, 1:] == p_sorted[:, :-1]
+    nxt_in_sort = torch.full((K, n), -1, dtype=torch.int64, device=dev)
+    nxt_in_sort[:, :-1] = order[:, 1:]
+    next_sibling = torch.full((K, n), -1, dtype=torch.int64, device=dev)
+    next_sibling.scatter_(1, order, torch.where(
+        same_parent_next, nxt_in_sort, torch.full_like(nxt_in_sort, -1)))
+    # head and padding share a sort bucket: sever any accidental link so
+    # the last list element's chain terminates instead of entering padding
+    next_sibling[:, 0] = -1
+
+    # nearest ancestor-or-self with a next sibling (head ends the climb);
+    # parents index the plane, clamped as the reference's gather clamps
+    has_sib = next_sibling >= 0
+    is_head = idx == 0
+    climb = torch.where(has_sib | is_head, idx,
+                        parent.to(torch.int64).clamp(0, n - 1))
+    for _ in range(rounds):
+        climb = torch.gather(climb, 1, climb)
+    up = torch.where(torch.gather(has_sib, 1, climb),
+                     torch.gather(next_sibling, 1, climb),
+                     torch.full_like(climb, -1))
+
+    succ = torch.where(first_child >= 0, first_child, up)
+    succ = torch.where(valid, succ, torch.full_like(succ, -1))
+
+    # --- list-rank the successor chain (pointer doubling) -------------------
+    # (n+1)-slot space where slot n is the chain terminator
+    nxt = torch.full((K, n + 1), n, dtype=torch.int64, device=dev)
+    nxt[:, :n] = torch.where(succ >= 0, succ, torch.full_like(succ, n))
+    dist = torch.ones((K, n + 1), dtype=torch.int64, device=dev)
+    dist[:, n] = 0
+    for _ in range(rounds):
+        dist = dist + torch.gather(dist, 1, nxt)
+        nxt = torch.gather(nxt, 1, nxt)
+    dist = dist[:, :n]                 # steps from node to end of chain
+    return (dist[:, :1] - dist).to(_I32)
+
+
+def _rga_order_batched(parent, elem, actor, visible, valid):
+    """Batched RGA over [K, m] job planes (parent/elem/actor int32,
+    visible/valid bool). Returns {'tree_pos', 'vis_index',
+    'node_at_pos': int32[K, m], 'length': int32[K]} — equal to the JAX
+    `_rga_order_batched` on every row (tree_pos on valid rows)."""
+    K, n = parent.shape
+    dev = parent.device
+    visible = visible.to(torch.bool)
+    valid = valid.to(torch.bool)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)[None, :] \
+        .expand(K, n)
+    parent = parent.to(torch.int64)
+
+    # --- 1. sort children into (parent asc, elem desc, actor desc) ---------
+    # the head (node 0) is nobody's child: bucket it with the padding so
+    # it never receives sibling links of its own
+    parent_adj = torch.where(valid & (idx != 0), parent,
+                             torch.full_like(parent, n))
+    order = _stable_lexsort((-actor.to(torch.int64),
+                             -elem.to(torch.int64), parent_adj))
+
+    # --- 2-3. thread + list-rank -------------------------------------------
+    tree_pos = _thread_and_rank(parent, parent_adj, order, valid)
+
+    # --- 4. visibility scan -------------------------------------------------
+    tp = tree_pos.to(torch.int64)
+    on_chain = valid & (tp > 0)        # head and padding excluded
+    # chain positions are unique; off-chain rows write 0 at position 0
+    # in the reference — route them to the sink and set that cell last
+    node_at_pos = torch.full((K, n + 1), n - 1, dtype=torch.int64,
+                             device=dev)
+    node_at_pos.scatter_(1, torch.where(on_chain, tp,
+                                        torch.full_like(tp, n)), idx)
+    node_at_pos = node_at_pos[:, :n]
+    node_at_pos[:, 0] = torch.where((~on_chain).any(dim=1),
+                                    torch.zeros_like(node_at_pos[:, 0]),
+                                    node_at_pos[:, 0])
+    vis_ordered = torch.gather(on_chain, 1, node_at_pos) & \
+        torch.gather(visible, 1, node_at_pos)
+    vo = vis_ordered.to(_I32)
+    vis_rank_ordered = torch.cumsum(vo, dim=1, dtype=_I32) - vo
+    vis_index = torch.gather(vis_rank_ordered, 1, tp.clamp(0, n - 1))
+    vis_index = torch.where(visible & on_chain, vis_index,
+                            torch.full_like(vis_index, -1))
+    length = (visible & on_chain).sum(dim=1, dtype=_I32)
+    return {'tree_pos': tree_pos, 'vis_index': vis_index,
+            'node_at_pos': node_at_pos.to(_I32), 'length': length}
+
+
+def _rga_order(parent, elem, actor, visible, valid):
+    """One insertion tree ([n] planes): `_rga_order_batched` on a batch
+    of one."""
+    out = _rga_order_batched(parent[None], elem[None], actor[None],
+                             visible[None], valid[None])
+    return {'tree_pos': out['tree_pos'][0], 'vis_index': out['vis_index'][0],
+            'node_at_pos': out['node_at_pos'][0],
+            'length': out['length'][0]}
+
+
+def rga_order(parent, elem, actor, visible, valid):
+    """Total document order of an insertion tree.
+
+    Args:
+      parent:  int32[n] parent node index per node (node 0 = '_head')
+      elem:    int32[n] Lamport counter per node
+      actor:   int32[n] actor rank per node
+      visible: bool[n]  node currently has a value (not a tombstone)
+      valid:   bool[n]  padding mask (node 0 must be valid)
+
+    Returns dict of tree_pos, vis_index, node_at_pos (int32[n]) and
+    length (int32).
+    """
+    return _rga_order(parent, elem, actor, visible, valid)
+
+
+def rga_order_batch(parent, elem, actor, visible, valid):
+    """Batched ordering over a leading document axis."""
+    return _rga_order_batched(parent, elem, actor, visible, valid)

@@ -1,0 +1,122 @@
+"""The edit stream: the PyTorch port's plain versions against the JAX
+package's ``edit_stream`` / ``edit_stream_packed`` (and once against the
+Pallas kernel in interpret mode) on numpy-seeded planes, including
+``e_pad`` below the class counts (the drop path). ``dispatch_edit_stream``
+runs the plain version for CPU tensors; the CUDA kernel is held against
+the plain version on the card (``cuda``-marked cases)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from automerge_tpu.device import pallas_view as jv
+from automerge_tpu_torch.device import cuda_view as tv
+
+from chip_smoke import random_planes
+
+torch.set_num_threads(1)
+
+
+def _same(jout, tout):
+    jout = jax.device_get(jout)
+    assert len(jout) == len(tout) == 6
+    for a, b in zip(jout, tout):
+        a = np.asarray(a)
+        b = b.cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+def _t(*xs):
+    return [torch.as_tensor(x) for x in xs]
+
+
+CASES = [(1, 8, 8), (5, 64, 8), (5, 64, 24), (7, 200, 16), (3, 200, 64),
+         (2, 40, 1)]
+
+
+@pytest.mark.parametrize('K,m,e_pad', CASES)
+def test_plain_packed_matches_jax(K, m, e_pad):
+    rng = np.random.default_rng(K * 1000 + m + e_pad)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
+    _same(jv.edit_stream_packed(packed, tb, e_pad=e_pad),
+          tv.edit_stream_packed(*_t(packed, tb), e_pad=e_pad))
+
+
+@pytest.mark.parametrize('K,m,e_pad', CASES)
+def test_plain_cols_matches_jax(K, m, e_pad):
+    rng = np.random.default_rng(K * 1000 + m + e_pad + 7)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
+    _same(jv.edit_stream(pv, nv, pi, ni, tb, e_pad=e_pad),
+          tv.edit_stream(*_t(pv, nv, pi, ni, tb), e_pad=e_pad))
+
+
+def test_drop_path_counts_are_not_clamped():
+    rng = np.random.default_rng(2)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, 4, 64)
+    out = tv.edit_stream_packed(*_t(packed, tb), e_pad=4)
+    cnt = out[5].numpy()
+    assert (cnt > 4).any()            # the drop path ran
+    assert np.array_equal(cnt[:, 0], (pv & ~nv).sum(axis=1))
+    assert np.array_equal(cnt[:, 1], (nv & ~pv).sum(axis=1))
+
+
+def test_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(42)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, 3, 32)
+    _same(jv.edit_stream_pallas(pv, nv, pi, ni, tb, e_pad=8,
+                                interpret=True),
+          tv.edit_stream(*_t(pv, nv, pi, ni, tb), e_pad=8))
+
+
+@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+def test_dispatch_on_cpu_uses_the_plain_version(fmt):
+    rng = np.random.default_rng(5)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, 6, 48)
+    planes = torch.as_tensor(packed) if fmt == 'packed' else \
+        tuple(_t(pv, nv, pi, ni))
+    before = tv.launches
+    got = tv.dispatch_edit_stream(fmt, planes, tb, 16)
+    assert tv.launches == before
+    assert all(t.device.type == 'cpu' for t in got)
+    _same(jv.dispatch_edit_stream(fmt, packed if fmt == 'packed'
+                                  else (pv, nv, pi, ni), tb, 16), got)
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    rng = np.random.default_rng(6)
+    _, _, _, _, tb, packed = random_planes(rng, 2, 16)
+    with pytest.raises(ValueError):
+        tv.edit_stream_cuda('packed', torch.as_tensor(packed),
+                            torch.as_tensor(tb), 8)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run on the card: python -m '
+                    'pytest tests/test_torch_edit_stream.py -m cuda)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K,m,e_pad', CASES + [(10240, 64, 64),
+                                               (64, 4096, 512)])
+@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+def test_cuda_kernel_matches_plain(cuda_device, fmt, K, m, e_pad):
+    rng = np.random.default_rng(K + m + e_pad)
+    pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
+    t_u8 = torch.as_tensor(tb).to(cuda_device)
+    if fmt == 'packed':
+        planes = torch.as_tensor(packed).to(cuda_device)
+        want = tv.edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    else:
+        planes = tuple(x.to(cuda_device) for x in _t(pv, nv, pi, ni))
+        want = tv.edit_stream(*planes, t_u8, e_pad=e_pad)
+    before = tv.launches
+    got = tv.dispatch_edit_stream(fmt, planes, tb, e_pad)
+    torch.cuda.synchronize()
+    assert tv.launches == before + 1
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -1,0 +1,116 @@
+"""The PyTorch port stands alone: no module of ``automerge_tpu_torch``
+(nor ``chip_smoke.py``) imports JAX or the JAX package, importing it
+loads neither, and its entry points refuse to fall back to the CPU when
+CUDA is missing."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'automerge_tpu_torch')
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files
+                if f.endswith('.py')]
+    return sorted(out)
+
+
+def _forbidden(name):
+    return (name == 'jax' or name.startswith('jax.')
+            or name == 'automerge_tpu' or name.startswith('automerge_tpu.'))
+
+
+@pytest.mark.parametrize('path', _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f'{path} imports {bad}'
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = (
+        'import sys\n'
+        'before = set(sys.modules)\n'
+        'import automerge_tpu_torch\n'
+        'import automerge_tpu_torch.device.general\n'
+        'import automerge_tpu_torch.device.cuda_view\n'
+        'import automerge_tpu_torch.device.engine\n'
+        'import automerge_tpu_torch.device.general_backend\n'
+        'import automerge_tpu_torch.frontend\n'
+        'import automerge_tpu_torch.native\n'
+        'new = set(sys.modules) - before\n'
+        'print(sorted(m for m in new if m == "jax" or '
+        'm.startswith("jax.") or m == "automerge_tpu" or '
+        'm.startswith("automerge_tpu.")))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    from automerge_tpu_torch import GeneralDocSet, init_store
+    from automerge_tpu_torch.device import general_backend
+    from automerge_tpu_torch.device.engine import batch_merge_docs
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        GeneralDocSet(4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        init_store(4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        GeneralDocSet(4, device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        general_backend.init()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        batch_merge_docs([[]])
+
+
+def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
+    from automerge_tpu_torch import GeneralDocSet
+    ds = GeneralDocSet(2, device='cpu')
+    ds.apply_changes('d', [{'actor': 'a', 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'makeText', 'obj': 't'},
+        {'action': 'link', 'obj': '00000000-0000-0000-0000-000000000000',
+         'key': 'text', 'value': 't'},
+        {'action': 'ins', 'obj': 't', 'key': '_head', 'elem': 1},
+        {'action': 'set', 'obj': 't', 'key': 'a:1', 'value': 'x'}]}])
+    assert ds.materialize('d') == {'text': 'x'}
+    assert ds.device.type == 'cpu' and ds.store.device.type == 'cpu'
+    mir = ds.store.pool.mirror
+    assert all(v.device.type == 'cpu' for v in mir.values()
+               if isinstance(v, torch.Tensor))
+
+
+def test_unported_paths_raise_not_implemented():
+    from automerge_tpu_torch import GeneralDocSet
+    from automerge_tpu_torch.config import Options
+    from automerge_tpu_torch.device import engine, general
+    ds = GeneralDocSet(2, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ds.apply_wire(b'[]')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ds.apply_states({'d': b''})
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        general.apply_general_block_async(ds.store, None)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        engine.pick_resolve_kernel('pallas')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        Options().make_mesh()
