@@ -45,9 +45,12 @@ class Options:
     """Device/engine configuration.
 
     Attributes:
-      kernel: flat-map field-resolution kernel — 'auto' and 'xla' run
-        the PyTorch resolve (device/merge.py); 'pallas' names the TPU
-        flat-map kernel, which is not ported yet and raises.
+      kernel: flat-map field-resolution kernel. On a CUDA device 'auto'
+        and 'pallas' launch the hand-written flat-map kernel
+        (device/cuda_merge.py, csrc/flatmap_resolve.cu) and 'xla' runs
+        the PyTorch segment resolve (device/merge.py); on the CPU all
+        three run that PyTorch resolve, which is the kernel's plain
+        version.
       n_devices: mesh size for sharded engines (None = every device).
       op_pad: fixed op-axis padding per document batch (None = next pow2).
       seg_pad: fixed segment (field) capacity (None = next pow2).

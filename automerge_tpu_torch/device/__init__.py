@@ -1,3 +1,13 @@
 """Device layer of the PyTorch port: the general engine's fused apply
-(:mod:`.general`), field resolution (:mod:`.merge`), RGA ordering
-(:mod:`.sequence`) and the edit-stream kernel (:mod:`.cuda_view`)."""
+(:mod:`.general`), the per-doc device backend (:mod:`.backend`) and the
+batch merge engine (:mod:`.engine`), field resolution (:mod:`.merge`),
+RGA ordering (:mod:`.sequence`), and the hand-written CUDA kernels behind
+them — the edit stream (:mod:`.cuda_view`), the RGA order
+(:mod:`.cuda_sequence`) and the flat-map resolve (:mod:`.cuda_merge`),
+built by :mod:`.cuda_build`."""
+
+from .engine import DocStore, batch_merge_docs, pick_resolve_kernel
+from .blocks import ChangeBlock, PatchBlock, BlockStore, apply_block
+
+__all__ = ['DocStore', 'batch_merge_docs', 'pick_resolve_kernel',
+           'ChangeBlock', 'PatchBlock', 'BlockStore', 'apply_block']

@@ -33,12 +33,11 @@ belongs to the wide-mirror slice and is not ported yet (ROADMAP A.4).
 """
 
 import ctypes
-import os
-import subprocess
-import threading
 
 import numpy as np
 import torch
+
+from . import cuda_build
 
 _I32 = torch.int32
 
@@ -50,66 +49,18 @@ _W2_IDX_SHIFT = 15
 # edit_stream_cuda only) — the proof that a run went through the kernel
 launches = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, 'csrc', 'edit_stream.cu')
-_BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-_SO = os.path.join(_BUILD_DIR, 'libedit_stream.so')
-_NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC']
-_lib = None
-_lib_lock = threading.Lock()
-
 # input formats of the kernel's C entry point
 _FMT_PACKED, _FMT_COLS = 0, 1
+
+# fmt, 5 input planes, touched, 5 outputs, cnt, grid, K, m, mb, e_pad,
+# stream
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_void_p] * 8
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def reset_launches():
     global launches
     launches = 0
-
-
-def _nvcc():
-    for cand in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if cand:
-            path = os.path.join(cand, 'bin', 'nvcc')
-            if os.path.exists(path):
-                return path
-    return 'nvcc'
-
-
-def build(force=False):
-    """Compile ``csrc/edit_stream.cu`` into ``_build/`` (once per
-    source version) and return the path of the shared library. Raises
-    ``RuntimeError`` with nvcc's output when the build fails."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    if not force and os.path.exists(_SO) and \
-            os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
-    tmp = f'{_SO}.tmp.{os.getpid()}'
-    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f'edit_stream.cu failed to build ({" ".join(cmd)}):\n'
-            f'{res.stdout}{res.stderr}')
-    os.replace(tmp, _SO)
-    return _SO
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.edit_stream_launch
-            # fmt, 5 input planes, touched, 5 outputs, cnt, grid,
-            # K, m, mb, e_pad, stream
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 +
-                           [ctypes.c_void_p] * 8 +
-                           [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _unpack_touch(touched_u8, m):
@@ -184,18 +135,6 @@ def edit_stream_packed(vis_packed, touched_u8, *, e_pad):
     return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
 
 
-def _check(t, name, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f'{name} is on {t.device}, expected {dev}')
-    if t.dtype != dtype:
-        raise TypeError(f'{name} has dtype {t.dtype}, expected {dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
-                         f'{tuple(shape)}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
-
-
 def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
     """Launch the CUDA edit-stream kernel on one apply's vis planes:
     ``vis_fmt='packed'`` takes the int32 [K, m] vis word plane,
@@ -213,17 +152,17 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
         v = planes
         K, m = v.shape
         dev = v.device
-        _check(v, 'vis_packed', _I32, (K, m), dev)
+        cuda_build.check(v, 'vis_packed', _I32, (K, m), dev)
         ptrs = [v.data_ptr(), 0, 0, 0, 0]
         fmt = _FMT_PACKED
     elif vis_fmt == 'cols':
         pv, nv, pi, ni = planes
         K, m = pv.shape
         dev = pv.device
-        _check(pv, 'prior_vis', torch.bool, (K, m), dev)
-        _check(nv, 'visible', torch.bool, (K, m), dev)
-        _check(pi, 'prior_idx', _I32, (K, m), dev)
-        _check(ni, 'new_idx', _I32, (K, m), dev)
+        cuda_build.check(pv, 'prior_vis', torch.bool, (K, m), dev)
+        cuda_build.check(nv, 'visible', torch.bool, (K, m), dev)
+        cuda_build.check(pi, 'prior_idx', _I32, (K, m), dev)
+        cuda_build.check(ni, 'new_idx', _I32, (K, m), dev)
         ptrs = [0, pv.data_ptr(), nv.data_ptr(), pi.data_ptr(),
                 ni.data_ptr()]
         fmt = _FMT_COLS
@@ -234,7 +173,7 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
     if dev.type != 'cuda':
         raise ValueError('edit_stream_cuda needs CUDA tensors')
     mb = (m + 7) >> 3
-    _check(touched_u8, 'touched_u8', torch.uint8, (K, mb), dev)
+    cuda_build.check(touched_u8, 'touched_u8', torch.uint8, (K, mb), dev)
     if e_pad < 1 or m < 1:
         raise ValueError(f'bad edit-stream shape m={m} e_pad={e_pad}')
     outs = [torch.empty((K, e_pad), dtype=_I32, device=dev)
@@ -242,11 +181,11 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
     cnt = torch.empty((K, 3), dtype=_I32, device=dev)
     if K == 0:                  # no job rows: nothing to launch
         return (*outs, cnt)
-    lib = _load()
+    fn = cuda_build.load('edit_stream', 'edit_stream_launch', _ARGTYPES)
     grid = torch.empty((K, m), dtype=_I32, device=dev)    # scan scratch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.edit_stream_launch(
+        err = fn(
             fmt, *ptrs, touched_u8.data_ptr(),
             *[o.data_ptr() for o in outs], cnt.data_ptr(),
             grid.data_ptr(), K, m, mb, e_pad, stream)

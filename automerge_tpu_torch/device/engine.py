@@ -17,6 +17,7 @@ import torch
 
 from ..config import DEFAULT as DEFAULT_OPTIONS, resolve_device
 from ..utils.metrics import metrics
+from . import cuda_merge
 from . import merge as merge_kernel
 from . import packing
 
@@ -31,17 +32,26 @@ def as_options(options=None, kernel=None):
 
 
 def pick_resolve_kernel(kernel='auto'):
-    """Select the field-resolution kernel implementation.
+    """Select the field-resolution kernel implementation. The choice
+    is made per call, on the device of the tensors it is given:
 
-    'auto' / 'xla' — the PyTorch segment-reduction resolve (merge.py).
-    'pallas'       — the TPU flat-map kernel (pallas_merge.py); its
-                     Hopper port is not written yet (ROADMAP B.3), so
-                     asking for it raises.
+    'auto' / 'pallas' — on CUDA tensors, the hand-written flat-map
+                        kernel (``cuda_merge.resolve_cuda``,
+                        ``csrc/flatmap_resolve.cu``; a build or launch
+                        failure raises). On CPU tensors, its plain
+                        version, which is the PyTorch segment resolve
+                        below.
+    'xla'             — the PyTorch segment-reduction resolve
+                        (merge.py) on every device: the explicit choice
+                        of the plain tensor program, as in the JAX
+                        package.
+
+    The JAX package's shape thresholds for 'auto' (``_pallas_wins``)
+    were measured on a TPU and are not carried over: on the card 'auto'
+    always takes the kernel.
     """
-    if kernel == 'pallas':
-        raise NotImplementedError(
-            'the flat-map resolve kernel (pallas_merge.py) is not ported '
-            'yet (ROADMAP B.3)')
+    if kernel in ('auto', 'pallas'):
+        return cuda_merge.dispatch_resolve
     return merge_kernel.resolve_assignments_batch
 
 

@@ -22,12 +22,13 @@ Local changes and undo/redo run NATIVELY on the token: inverse-op
 capture reads the store columns through the ``fields`` view (the same
 surface `backend._capture_undo_ops` stages against), and the token
 carries the undo/redo stacks — so a document ingested at bulk scale
-keeps the full per-doc surface without ever converting.
+keeps the full per-doc surface without ever converting. The per-doc
+conversion (:func:`to_device_state`) remains available for callers
+that want the staged representation.
 
 This is the PyTorch port's copy: tokens live on a store of the caller's
-``device`` (:func:`init`). The per-doc device backend is not ported
-yet, so :func:`to_device_state` and the historical-token branch of
-:func:`get_patch` raise ``NotImplementedError`` (ROADMAP A.9).
+``device`` (:func:`init`), and the per-doc state a token converts to
+lives on the same device.
 """
 
 import numpy as np
@@ -297,11 +298,24 @@ def get_missing_deps(state):
 
 
 def to_device_state(state):
-    """The per-doc device backend behind this conversion is not ported
-    yet (ROADMAP A.9)."""
-    raise NotImplementedError(
-        'the per-doc device backend (device/backend.py) is not ported '
-        'yet (ROADMAP A.9)')
+    """Convert (lazily, cached per token) to the per-doc
+    DeviceBackendState on the token's device — the continuation path
+    for local changes and undo/redo."""
+    if state._device_state is None:
+        from . import backend as DeviceBackend
+        from ..config import Options
+        no_route = Options(bulk_route_min_ops=None)  # else it loops
+        dev = DeviceBackend.init(device=state.store.device)
+        changes = get_missing_changes(state, {})
+        if changes:
+            dev, _ = DeviceBackend.apply_changes(dev, changes,
+                                                 options=no_route)
+        queued = [c for _, c in state.store.queue]
+        if queued:
+            dev, _ = DeviceBackend.apply_changes(dev, queued,
+                                                 options=no_route)
+        state._device_state = dev
+    return state._device_state
 
 
 # native-view switch: None = auto (use the C++ view gather when the
@@ -424,11 +438,13 @@ def get_patch(state):
     store._commit_pending()
     store.pool.sync()
     if not state._is_current():
-        # historical token: the reference replays it through the per-doc
-        # device backend, which is not ported yet
-        raise NotImplementedError(
-            'get_patch of a historical token needs the per-doc device '
-            'backend, which is not ported yet (ROADMAP A.9)')
+        # historical token: replay through the per-doc backend; the
+        # undo flags are the TOKEN's (the replayed state has none)
+        from . import backend as DeviceBackend
+        p = DeviceBackend.get_patch(to_device_state(state))
+        p['canUndo'] = state.undo_pos > 0
+        p['canRedo'] = bool(state.redo_stack)
+        return p
     root = int(store._root_row[0]) if len(store._root_row) else -1
     diffs = []
     if root < 0:

@@ -16,11 +16,17 @@ rounds:
 4. **Visibility scan**: a prefix sum over tombstone flags maps tree
    positions to user-visible list indexes.
 
-The JAX package routes the doubling gathers of small trees through
-one-hot MXU matmuls because the TPU has no fast gather; every shape here
-uses direct batched ``torch.gather`` pointer doubling — integer-exact,
-and the same values as every JAX variant. Scatters the reference drops
-land in a sink column that is sliced off, and every output is int32.
+Step 1 is a PyTorch stable sort on every device (the JAX package keeps
+it in XLA outside its Pallas kernel too). Steps 2-4 are
+:func:`_order_from_sorted`: on CUDA tensors it launches the
+hand-written RGA kernel (:mod:`.cuda_sequence`, ``csrc/rga_order.cu``,
+the port of ``pallas_sequence.py``); on CPU tensors it runs
+:func:`_order_from_sorted_plain`, the kernel's plain version — direct
+batched ``torch.gather`` pointer doubling, integer-exact and the same
+values as every JAX variant (the JAX package routes small trees
+through one-hot MXU matmuls because the TPU has no fast gather).
+Scatters the reference drops land in a sink column that is sliced off,
+and every output is int32.
 
 Node 0 is the virtual ``'_head'`` element; padding slots carry
 ``valid=False`` and sort to the end. The delta orderer behind the
@@ -29,6 +35,8 @@ slice and is not ported yet (ROADMAP A.4).
 """
 
 import torch
+
+from . import cuda_sequence
 
 _I32 = torch.int32
 
@@ -116,29 +124,21 @@ def _thread_and_rank(parent, parent_adj, order, valid):
     return (dist[:, :1] - dist).to(_I32)
 
 
-def _rga_order_batched(parent, elem, actor, visible, valid):
-    """Batched RGA over [K, m] job planes (parent/elem/actor int32,
-    visible/valid bool). Returns {'tree_pos', 'vis_index',
-    'node_at_pos': int32[K, m], 'length': int32[K]} — equal to the JAX
-    `_rga_order_batched` on every row (tree_pos on valid rows)."""
+def _order_from_sorted_plain(order, parent_adj, parent, visible, valid):
+    """Steps 2-4 of the RGA order over [K, n] planes, from the stable
+    child sort ``order`` and the sort key ``parent_adj`` (head and
+    padding bucketed at n): thread + list-rank (`_thread_and_rank`),
+    then the visibility scan. The plain version of the CUDA kernel.
+    Returns the dict of `_rga_order_batched`."""
     K, n = parent.shape
     dev = parent.device
     visible = visible.to(torch.bool)
     valid = valid.to(torch.bool)
     idx = torch.arange(n, dtype=torch.int64, device=dev)[None, :] \
         .expand(K, n)
-    parent = parent.to(torch.int64)
-
-    # --- 1. sort children into (parent asc, elem desc, actor desc) ---------
-    # the head (node 0) is nobody's child: bucket it with the padding so
-    # it never receives sibling links of its own
-    parent_adj = torch.where(valid & (idx != 0), parent,
-                             torch.full_like(parent, n))
-    order = _stable_lexsort((-actor.to(torch.int64),
-                             -elem.to(torch.int64), parent_adj))
-
-    # --- 2-3. thread + list-rank -------------------------------------------
-    tree_pos = _thread_and_rank(parent, parent_adj, order, valid)
+    tree_pos = _thread_and_rank(parent.to(torch.int64),
+                                parent_adj.to(torch.int64),
+                                order.to(torch.int64), valid)
 
     # --- 4. visibility scan -------------------------------------------------
     tp = tree_pos.to(torch.int64)
@@ -163,6 +163,48 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     length = (visible & on_chain).sum(dim=1, dtype=_I32)
     return {'tree_pos': tree_pos, 'vis_index': vis_index,
             'node_at_pos': node_at_pos.to(_I32), 'length': length}
+
+
+def _order_from_sorted(order, parent_adj, parent, visible, valid):
+    """Steps 2-4 of the RGA order: CUDA planes always go through the
+    hand-written kernel (inputs cast to its int32/bool, contiguous; a
+    build or launch failure raises), CPU planes take the plain
+    version."""
+    if parent.device.type == 'cuda':
+        return cuda_sequence.order_from_sorted_cuda(
+            *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
+            visible.to(torch.bool).contiguous(),
+            valid.to(torch.bool).contiguous(),
+            rounds=_ceil_log2(parent.shape[1]) + 1)
+    return _order_from_sorted_plain(order, parent_adj, parent, visible,
+                                    valid)
+
+
+def _child_sort(parent, elem, actor, valid):
+    """Step 1 over [K, n] planes: the stable sort of the children into
+    (parent asc, elem desc, actor desc). Returns int64 ``(order,
+    parent_adj, parent)``; ``parent_adj`` is the sort's parent key, with
+    the head and the padding bucketed at n."""
+    K, n = parent.shape
+    idx = torch.arange(n, dtype=torch.int64, device=parent.device)[None, :] \
+        .expand(K, n)
+    parent = parent.to(torch.int64)
+    # the head (node 0) is nobody's child: bucket it with the padding so
+    # it never receives sibling links of its own
+    parent_adj = torch.where(valid.to(torch.bool) & (idx != 0), parent,
+                             torch.full_like(parent, n))
+    order = _stable_lexsort((-actor.to(torch.int64),
+                             -elem.to(torch.int64), parent_adj))
+    return order, parent_adj, parent
+
+
+def _rga_order_batched(parent, elem, actor, visible, valid):
+    """Batched RGA over [K, m] job planes (parent/elem/actor int32,
+    visible/valid bool). Returns {'tree_pos', 'vis_index',
+    'node_at_pos': int32[K, m], 'length': int32[K]} — equal to the JAX
+    `_rga_order_batched` on every row (tree_pos on valid rows)."""
+    order, parent_adj, parent = _child_sort(parent, elem, actor, valid)
+    return _order_from_sorted(order, parent_adj, parent, visible, valid)
 
 
 def _rga_order(parent, elem, actor, visible, valid):

@@ -9,26 +9,41 @@ exits non-zero without a result line):
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the edit-stream CUDA kernel (nvcc, sm_90a) and the native
-   host libraries (g++), each timed;
-3. kernel vs plain version: the CUDA edit-stream kernel against the
-   plain PyTorch version on seeded planes, both input formats, several
-   (K, m, e_pad) shapes including the e_pad drop path — bit-equal;
-4. main path: a 10,240-document collab-server fleet (about 99 ops per
-   document, about 1.01M ops in one fused apply) through
-   ``GeneralDocSet(device='cuda').apply_changes_batch`` twice (tick 2
-   adds removes, inserts, sets and a conflict on every document) and
-   ``materialize_all``; the same two ticks on the CPU (a seeded subset
-   of documents in a fleet of their own) must give equal views, and the
-   kernel's launch counter must rise on every tick of the main path;
-5. one more tick under ``torch.profiler``: device busy time against
-   the tick's wall time (the idle share) and the kernels that take it;
-6. timings of the kernel at the main path's tick-2 shape beside its
-   bound, the plain version and the card name/power limit; the JSON
+2. build: the three CUDA kernels (one nvcc per source, sm_90a, all
+   started together) and the native host libraries (g++), each timed;
+3. kernels vs plain versions, bit-equal: the edit stream on seeded
+   planes (both input formats, several (K, m, e_pad) shapes including
+   the e_pad drop path); the RGA order on seeded trees at (K, m) up to
+   (12288, 64), (64, 4096) and (2, 40000), the last on the kernel's
+   global-memory variant; the flat-map resolve on
+   ``gen_docset_workload(cross_clock=True)`` batches up to the flagship
+   10,240 docs x 128 ops x 8 actors;
+4. the general engine's tick: a 10,240-document collab-server fleet
+   (about 99 ops per document, about 1.01M ops in one fused apply)
+   through ``GeneralDocSet(device='cuda').apply_changes_batch`` twice
+   (tick 2 adds removes, inserts, sets and a conflict on every
+   document) and ``materialize_all``; the same two ticks on the CPU (a
+   seeded subset of documents in a fleet of their own) must give equal
+   views, and the edit-stream and RGA kernels' launch counters must rise
+   on every tick;
+5. the per-doc device backend: ``DeviceDocSet(device='cuda')
+   .apply_changes_batch`` on a 10,240-document map-only fleet (8
+   concurrent actors x 16 set/del ops over 32 keys per document,
+   1,310,720 ops: the flat-map kernel) and a 10,240-document list fleet
+   (the tick-1 documents above: the fused step and its RGA kernel); the
+   documents must equal ``DeviceDocSet(device='cpu')`` on a seeded
+   768-document subset and the host oracle ``DocSet`` on 64;
+6. one more general tick under ``torch.profiler``: device busy time
+   against the tick's wall time (the idle share) and the kernels that
+   take it;
+7. timings of each kernel at its main-path shapes (CUDA events) beside
+   its bound, its plain version and the card name/power limit; the JSON
    kernel line; then the result line.
 
-The workload generators (``gen_mixed_docs``, ``gen_tick2``) are shared
-with the tests.
+Every launch counter is set to 0 just before a path is driven and read
+just after it. The workload generators (``gen_mixed_docs``,
+``gen_tick2``, ``random_planes``, ``random_trees``) are shared with the
+tests.
 """
 
 import json
@@ -138,6 +153,37 @@ def random_planes(rng, K, m):
     return pv, nv, pi, ni, tb, packed
 
 
+def random_trees(rng, K, m):
+    """Seeded [K, m] RGA job planes (int32 parent/elem/actor, bool
+    visible/valid): row k holds an insertion tree of n_k valid nodes
+    (node 0 the head, every parent an earlier node: mostly typing
+    chains with random branches), Lamport counters with ties among
+    siblings, actor ranks and tombstones; the rest of the row is
+    padding. The first row is full and, when K > 2, the last is all
+    padding."""
+    parent = np.zeros((K, m), np.int32)
+    elem = np.zeros((K, m), np.int32)
+    actor = np.zeros((K, m), np.int32)
+    visible = np.zeros((K, m), bool)
+    valid = np.zeros((K, m), bool)
+    n = rng.integers(1, m + 1, K)
+    n[0] = m
+    if K > 2:
+        n[-1] = 0
+    for k in range(K):
+        nk = int(n[k])
+        valid[k, :nk] = True
+        if nk < 2:
+            continue
+        chain = np.arange(nk - 1)
+        jump = (rng.random(nk - 1) * np.arange(1, nk)).astype(np.int32)
+        parent[k, 1:nk] = np.where(rng.random(nk - 1) < 0.6, chain, jump)
+        elem[k, 1:nk] = rng.integers(1, max(nk // 2, 2), nk - 1)
+        actor[k, 1:nk] = rng.integers(0, 4, nk - 1)
+        visible[k, 1:nk] = rng.random(nk - 1) < 0.7
+    return parent, elem, actor, visible, valid
+
+
 def _card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -180,6 +226,245 @@ def _span_sum(spans, name):
     return sum(d for n, d in spans if n == name)
 
 
+def doc_view(doc):
+    """A frontend document as plain Python: (value, conflicts), maps as
+    dicts, lists as lists, text as a string — what two backends must
+    agree on."""
+    def conv(obj):
+        name = type(obj).__name__
+        if name == 'Text':
+            return ''.join(str(c) for c in obj)
+        if name == 'AmList':
+            return [conv(v) for v in obj]
+        if hasattr(obj, '_conflicts'):
+            return {k: conv(v) for k, v in obj.items()}
+        return obj
+
+    def confl(obj):
+        name = type(obj).__name__
+        out = {}
+        if hasattr(obj, '_conflicts'):
+            out['.'] = obj._conflicts
+            items = obj.items() if name not in ('AmList', 'Text') else \
+                enumerate(obj)
+            for k, v in items:
+                sub = confl(v)
+                if sub:
+                    out[k] = sub
+        return out
+    return conv(doc), confl(doc)
+
+
+def gen_map_fleet(n_docs, seed=11):
+    """The per-doc backend's map-only batch: in each document, 8
+    concurrent actors each send one change of 16 set/del ops over 32
+    root keys (128 ops per document; ``workloads.gen_block_workload``
+    with a tenth of the ops deletes)."""
+    from automerge_tpu_torch.device.workloads import gen_block_workload
+    return gen_block_workload(n_docs=n_docs, n_actors=8, ops_per_change=16,
+                              n_keys=32, seed=seed, del_p=0.1).to_changes()
+
+
+def _reset_counts(*mods):
+    for mod in mods:
+        mod.reset_launches()
+
+
+def _bits_err(got, want, where, mask=None):
+    """Largest |got - want| over a dict of integer outputs (``mask``
+    restricts ``tree_pos`` to valid rows); raises when a dtype or shape
+    differs."""
+    import torch
+    err = 0
+    for k in want:
+        a, b = got[k], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f'{where} {k}: {a.dtype}{tuple(a.shape)} '
+                                 f'!= {b.dtype}{tuple(b.shape)}')
+        if k == 'tree_pos' and mask is not None:
+            a, b = a[mask], b[mask]
+        if a.numel():
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def _check_rga_kernel(dev):
+    """Phase 3b: the RGA kernel against its plain version on seeded
+    trees (the last shape takes the global-memory variant)."""
+    import torch
+    from automerge_tpu_torch.device import cuda_sequence, sequence
+    rng = np.random.default_rng(4321)
+    for K, m in ((1, 2), (6, 16), (37, 200), (12288, 64), (64, 4096),
+                 (2, 40000)):
+        planes = [torch.as_tensor(p).to(dev) for p in random_trees(rng, K, m)]
+        order, padj, parent = sequence._child_sort(planes[0], planes[1],
+                                                   planes[2], planes[4])
+        want = sequence._order_from_sorted_plain(order, padj, parent,
+                                                 planes[3], planes[4])
+        got = cuda_sequence.order_from_sorted_cuda(
+            order.to(torch.int32), padj.to(torch.int32),
+            parent.to(torch.int32), planes[3], planes[4],
+            rounds=sequence._ceil_log2(m) + 1)
+        torch.cuda.synchronize()
+        if _bits_err(got, want, f'rga {(K, m)}', mask=planes[4]):
+            raise AssertionError(f'rga kernel != plain at {(K, m)}')
+        glob = cuda_sequence.uses_global_scratch(m)
+        if glob != (m == 40000):
+            raise AssertionError(f'rga at m={m}: global scratch {glob}')
+        print(f'kernel: rga_order (K={K}, m={m}) bit-equal to the plain '
+              f'version (global-memory variant: {glob})', flush=True)
+
+
+def _check_flatmap_kernel(dev):
+    """Phase 3c: the flat-map kernel against its plain version on
+    ``gen_docset_workload(cross_clock=True)`` at the Pallas tests'
+    shapes and the flagship shape."""
+    import torch
+    from automerge_tpu_torch.device import cuda_merge, merge
+    from automerge_tpu_torch.device.workloads import gen_docset_workload
+    for D, N, A, keys, S in ((1, 8, 2, 3, 8), (3, 130, 4, 7, 130),
+                             (8, 128, 8, 32, 128), (9, 257, 3, 40, 257),
+                             (10240, 128, 8, 32, 32)):
+        args = [torch.as_tensor(a).to(dev) for a in gen_docset_workload(
+            n_docs=D, n_ops=N, n_actors=A, n_keys=keys, seed=D + N,
+            del_p=0.1, invalid_p=0.1, cross_clock=True)]
+        want = merge.resolve_assignments_batch(*args, num_segments=S)
+        got = cuda_merge.resolve_cuda(*args, num_segments=S)
+        torch.cuda.synchronize()
+        if _bits_err(got, want, f'flatmap {(D, N, A, S)}'):
+            raise AssertionError(f'flatmap kernel != plain at '
+                                 f'{(D, N, A, S)}')
+        print(f'kernel: flatmap_resolve (D={D}, N={N}, A={A}, S={S}) '
+              f'bit-equal to the plain version', flush=True)
+
+
+def _device_doc_set_path(card, n_docs, list_ops):
+    """Phase 5: the per-doc device backend behind ``DeviceDocSet(device=
+    'cuda')`` at config-5 size, two batches — a map-only fleet (the
+    flat-map kernel) and a list fleet (the fused step's RGA kernel) —
+    each checked against ``DeviceDocSet(device='cpu')`` on a seeded
+    768-document subset and the host-oracle ``DocSet`` on 64 of them.
+    Returns (launch counts, captured kernel inputs)."""
+    import torch
+    from automerge_tpu_torch.device import backend as DB
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.sync import DeviceDocSet, DocSet
+
+    t0 = time.perf_counter()
+    batches = [('map', 'm', gen_map_fleet(n_docs)),
+               ('list', 'l', gen_mixed_docs(n_docs, list_ops))]
+    print(f'device doc set: generated {n_docs} map docs '
+          f'({sum(len(c["ops"]) for d in batches[0][2] for c in d)} ops) '
+          f'and {n_docs} list docs '
+          f'({sum(len(c["ops"]) for d in batches[1][2] for c in d)} ops) in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    # host staging vs device step, by wrapping the backend's phases
+    phase_s = {}
+    host = ('_admit_changes', '_stage_changes', '_collect_seq_jobs',
+            '_pack_docs', '_pack_seq_jobs')
+    dev_fns = ('_resolve_batch', '_fused_step')
+    originals = {n: getattr(DB, n) for n in host + dev_fns}
+
+    def timed(name, fn, sync):
+        key = 'host' if name in host else 'device'
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            phase_s[key] = phase_s.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    # the kernel inputs the path hands the kernels, for the timings
+    captured = {}
+    real_rga = cuda_sequence.order_from_sorted_cuda
+    real_fm = cuda_merge.resolve_cuda
+
+    def cap_rga(*a, **kw):
+        captured['rga'] = (a, kw)
+        return real_rga(*a, **kw)
+
+    def cap_fm(*a, **kw):
+        captured['flatmap'] = (a, kw)
+        return real_fm(*a, **kw)
+
+    dds = DeviceDocSet(device='cuda')
+    counts = {}
+    for name, fn in originals.items():
+        setattr(DB, name, timed(name, fn, name in dev_fns))
+    cuda_sequence.order_from_sorted_cuda = cap_rga
+    cuda_merge.resolve_cuda = cap_fm
+    try:
+        _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+        for name, prefix, per_doc in batches:
+            before = (cuda_merge.launches, cuda_sequence.launches)
+            phase_s.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dds.apply_changes_batch({f'{prefix}{d}': per_doc[d]
+                                     for d in range(n_docs)})
+            torch.cuda.synchronize()
+            t_apply = (time.perf_counter() - t0) * 1e3
+            fm = cuda_merge.launches - before[0]
+            rga = cuda_sequence.launches - before[1]
+            if name == 'map' and fm < 1:
+                raise AssertionError('the map-only batch did not launch the '
+                                     'flat-map kernel')
+            if name == 'list' and rga < 1:
+                raise AssertionError('the list batch did not launch the RGA '
+                                     'kernel')
+            print(f'device doc set {name} batch ({card}): apply {t_apply:.1f}'
+                  f' ms = host staging {phase_s.get("host", 0) * 1e3:.1f} + '
+                  f'device step {phase_s.get("device", 0) * 1e3:.1f} + rest '
+                  f'(unpack, diffs, frontend patches) '
+                  f'{t_apply - sum(phase_s.values()) * 1e3:.1f}; launches '
+                  f'flat-map {fm} rga {rga}; peak device memory '
+                  f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
+                  flush=True)
+        counts = {'flatmap_resolve': cuda_merge.launches,
+                  'rga_order': cuda_sequence.launches,
+                  'edit_stream': cuda_view.launches}
+    finally:
+        for name, fn in originals.items():
+            setattr(DB, name, fn)
+        cuda_sequence.order_from_sorted_cuda = real_rga
+        cuda_merge.resolve_cuda = real_fm
+
+    # the same batches on the CPU (seeded subset, a doc set of its own)
+    # and on the host oracle (64 of those documents)
+    sub = np.sort(np.random.default_rng(9).choice(n_docs, 768,
+                                                  replace=False)).tolist()
+    cds, ods = DeviceDocSet(device='cpu'), DocSet()
+    t0 = time.perf_counter()
+    for _, prefix, per_doc in batches:
+        cds.apply_changes_batch({f'{prefix}{d}': per_doc[d] for d in sub})
+        for d in sub[:64]:
+            ods.apply_changes(f'{prefix}{d}', per_doc[d])
+    t_cpu = time.perf_counter() - t0
+    for _, prefix, _b in batches:
+        for k, d in enumerate(sub):
+            doc_id = f'{prefix}{d}'
+            got = doc_view(dds.get_doc(doc_id))
+            if got != doc_view(cds.get_doc(doc_id)):
+                raise AssertionError(f'{doc_id}: cuda doc != cpu doc')
+            if k < 64 and got != doc_view(ods.get_doc(doc_id)):
+                raise AssertionError(f'{doc_id}: cuda doc != oracle doc')
+    bad = [d for d in range(n_docs)
+           if len(doc_view(dds.get_doc(f'l{d}'))[0]['items']) != list_ops]
+    if bad:
+        raise AssertionError(f'list docs of the wrong length: {bad[:3]}')
+    print(f'check: device doc set cuda docs (values and conflicts) == cpu '
+          f'on a seeded subset of {len(sub)} docs per batch and == the '
+          f'host oracle on 64 ({t_cpu:.1f} s on the cpu); all {n_docs} '
+          f'lists have {list_ops} items', flush=True)
+    return counts, captured
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -187,7 +472,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from automerge_tpu_torch import native as amnative
-    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.device import (cuda_build, cuda_merge,
+                                            cuda_sequence, cuda_view, merge,
+                                            sequence)
     from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
     from automerge_tpu_torch.utils.metrics import metrics
 
@@ -199,22 +486,23 @@ def main():
           flush=True)
     dev = torch.device('cuda')
 
-    # ---- 2. build ----
+    # ---- 2. build (one nvcc per kernel source, all at once) ----
     t0 = time.perf_counter()
-    cuda_view.build(force=True)
+    nvcc_s = cuda_build.build_all(force=True)
     t_nvcc = time.perf_counter() - t0
     t0 = time.perf_counter()
     nat = amnative.build_all()
     t_gpp = time.perf_counter() - t0
     if not all(nat):
         raise RuntimeError(f'native host libraries failed to build: {nat}')
-    print(f'build (host of {card}): edit_stream.cu (nvcc sm_90a) '
-          f'{t_nvcc:.2f} s, native host libraries (g++) {t_gpp:.2f} s',
-          flush=True)
+    print(f'build (host of {card}): ' + ', '.join(
+        f'{n}.cu {s:.2f} s' for n, s in nvcc_s.items())
+        + f' (nvcc sm_90a, in parallel: {t_nvcc:.2f} s), native host '
+        f'libraries (g++) {t_gpp:.2f} s', flush=True)
 
-    # ---- 3. kernel vs plain version (tolerance: bit-equal, the
-    # kernel computes integer ranks and copies, so any difference is a
-    # fault) ----
+    # ---- 3. kernels vs plain versions (tolerance: bit-equal, the
+    # kernels compute integer ranks, maxima and copies, so any
+    # difference is a fault) ----
     rng = np.random.default_rng(1234)
     for K, m, e_pad in ((1, 8, 8), (5, 64, 8), (37, 200, 24),
                         (10240, 64, 64), (64, 4096, 512)):
@@ -240,6 +528,8 @@ def main():
         print(f'kernel: (K={K}, m={m}, e_pad={e_pad}) packed+cols '
               f'bit-equal to the plain version (drop path hit: {drops})',
               flush=True)
+    _check_rga_kernel(dev)
+    _check_flatmap_kernel(dev)
 
     # ---- 4. main path at config-5 size ----
     n_docs, list_ops = 10240, 48
@@ -251,14 +541,19 @@ def main():
     print(f'workload: {n_docs} docs, tick 1 {n_ops[0]} ops, tick 2 '
           f'{n_ops[1]} ops (generated in {t_gen:.1f} s)', flush=True)
 
-    # the edit-stream inputs the main path hands the kernel, kept for
-    # the kernel-vs-plain check and the timing at those shapes
-    es_inputs = []
+    # the edit-stream and RGA inputs the main path hands the kernels,
+    # kept for the kernel-vs-plain check and the timing at those shapes
+    es_inputs, rga_inputs = [], []
     real_dispatch = cuda_view.dispatch_edit_stream
+    real_rga = cuda_sequence.order_from_sorted_cuda
 
     def capture(vis_fmt, planes, touched_u8, e_pad):
         es_inputs.append((vis_fmt, planes, np.array(touched_u8), e_pad))
         return real_dispatch(vis_fmt, planes, touched_u8, e_pad)
+
+    def capture_rga(*a, **kw):
+        rga_inputs.append((a, kw))
+        return real_rga(*a, **kw)
 
     # seeded documents whose diffs and views are checked against the CPU
     sub = np.sort(np.random.default_rng(7).choice(n_docs, 768,
@@ -293,15 +588,19 @@ def main():
     gds = GeneralDocSet(n_docs, device='cuda')
     diffs_gpu = []
     cuda_view.dispatch_edit_stream = capture
-    cuda_view.reset_launches()
+    cuda_sequence.order_from_sorted_cuda = capture_rga
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
     try:
         for k, batch in enumerate(ticks):
-            before = cuda_view.launches
+            before = (cuda_view.launches, cuda_sequence.launches)
             diffs, t_apply, t_read, spans = run_tick(
                 gds, batch, range(n_docs), sub, torch.cuda.synchronize)
-            if cuda_view.launches <= before:
+            if cuda_view.launches <= before[0]:
                 raise AssertionError(f'tick {k + 1} did not launch the '
                                      f'edit-stream kernel')
+            if cuda_sequence.launches <= before[1]:
+                raise AssertionError(f'tick {k + 1} did not launch the RGA '
+                                     f'kernel')
             diffs_gpu.append(diffs)
             enc = _span_sum(spans, 'admit.encode')
             fused = _span_sum(spans, 'device.fused_apply')
@@ -319,19 +618,25 @@ def main():
         t_mat = (time.perf_counter() - t0) * 1e3
     finally:
         cuda_view.dispatch_edit_stream = real_dispatch
+        cuda_sequence.order_from_sorted_cuda = real_rga
     launches_main = cuda_view.launches
+    rga_main = cuda_sequence.launches
     native_batches = metrics.counters.get('general_stage_native_batches', 0)
     variants = {k: v for k, v in metrics.counters.items()
                 if k.startswith('general_variant_')}
-    if launches_main < len(ticks):
+    if launches_main < len(ticks) or rga_main < len(ticks):
         raise AssertionError(f'edit-stream kernel launched {launches_main} '
-                             f'times on the {len(ticks)}-tick main path')
+                             f'and RGA kernel {rga_main} times on the '
+                             f'{len(ticks)}-tick main path')
+    if cuda_merge.launches:
+        raise AssertionError('the general tick launched the flat-map kernel')
     mir = gds.store.pool.mirror
     if mir['fmt'] != 'packed' or mir['w2'].device.type != 'cuda':
         raise AssertionError(f'mirror not packed on the card: {mir["fmt"]}')
     print(f'main path (cuda, {card}): materialize_all {t_mat:.1f} ms, '
-          f'edit-stream launches {launches_main}, native staging batches '
-          f'{native_batches}, variants {variants}, peak device memory '
+          f'edit-stream launches {launches_main}, rga launches {rga_main}, '
+          f'native staging batches {native_batches}, variants {variants}, '
+          f'peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
           flush=True)
 
@@ -359,11 +664,15 @@ def main():
           f'cpu); all {n_docs} cuda views have {list_ops + 1} items and '
           f'w2\'s meta as the conflict winner', flush=True)
 
-    # ---- 5. device busy vs wall ----
+    # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
+    dds_counts, dds_inputs = _device_doc_set_path(card, n_docs, list_ops)
+
+    # ---- 6. device busy vs wall ----
     _profile_tick(gds, ids, n_docs, list_ops, card)
 
-    # ---- 6. the kernel at the main path's shapes (each tick's own
-    # inputs; the timing at the last, tick 2) ----
+    # ---- 7. the kernels at the main path's shapes ----
+    kernels = []
+    # edit stream: each tick's own inputs; the timing at the last, tick 2
     max_abs = 0
     for vis_fmt, planes, tb, e_pad in es_inputs:
         t_u8 = torch.as_tensor(tb).to(dev)
@@ -387,13 +696,89 @@ def main():
           f'{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} '
           f'bytes at 3.35 TB/s), max |kernel - plain| {max_abs}',
           flush=True)
-    print(json.dumps({'kernels': [{
+    kernels.append({
         'name': 'edit_stream', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/edit_stream.cu',
         'replaces': 'automerge_tpu/device/pallas_view.py:233',
-        'launches': launches_main, 'max_abs_err': max_abs,
-        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': 'bytes', 'library_ms': None}]}), flush=True)
+        'launches': launches_main + dds_counts['edit_stream'],
+        'max_abs_err': max_abs, 'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': None})
+
+    # RGA order: every main-path input (both ticks and the device doc
+    # set's list batch) held against the plain version; timed at the
+    # device doc set's list batch and at the general tick 2
+    rga_timed = (('general tick 2', rga_inputs[-1]),
+                 ('device doc set list batch', dds_inputs['rga']))
+    rga_inputs.append(dds_inputs['rga'])
+    rga_err = 0
+    for a, kw in rga_inputs:
+        got = cuda_sequence.order_from_sorted_cuda(*a, **kw)
+        want = sequence._order_from_sorted_plain(*a[:5])
+        torch.cuda.synchronize()
+        rga_err = max(rga_err, _bits_err(got, want, 'rga main path',
+                                         mask=a[4]))
+    if rga_err:
+        raise AssertionError(f'rga kernel != plain at a main-path shape '
+                             f'(max |diff| {rga_err})')
+    rga_times = []
+    for label, (a, kw) in rga_timed:
+        Kr, mr = a[0].shape
+        r_ms = _time_ms(lambda: cuda_sequence.order_from_sorted_cuda(*a,
+                                                                     **kw))
+        r_plain = _time_ms(lambda: sequence._order_from_sorted_plain(*a[:5]),
+                           iters=20)
+        # inputs: order, parent_adj, parent int32 + visible, valid bool;
+        # outputs: three int32 planes + int32 length
+        r_bytes = Kr * mr * (4 * 3 + 2) + Kr * mr * 12 + Kr * 4
+        r_bound = r_bytes / _HBM_BYTES_PER_S * 1e3
+        rga_times.append((r_ms, r_plain, r_bound))
+        print(f'rga_order kernel ({card}): {label} shape K={Kr} m={mr}: '
+              f'{r_ms:.4f} ms/launch, plain PyTorch {r_plain:.4f} ms, bound '
+              f'{r_bound:.5f} ms ({r_bytes} bytes at 3.35 TB/s), max '
+              f'|kernel - plain| {rga_err}', flush=True)
+    r_ms, r_plain, r_bound = rga_times[-1]
+    kernels.append({
+        'name': 'rga_order', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/csrc/rga_order.cu',
+        'replaces': 'automerge_tpu/device/pallas_sequence.py:165',
+        'launches': rga_main + dds_counts['rga_order'],
+        'max_abs_err': rga_err, 'ms': r_ms, 'plain_ms': r_plain,
+        'bound_ms': r_bound, 'bound_by': 'bytes', 'library_ms': None})
+
+    # flat-map resolve: the map batch's own inputs
+    a, kw = dds_inputs['flatmap']
+    got = cuda_merge.resolve_cuda(*a, **kw)
+    want = merge.resolve_assignments_batch(*a, **kw)
+    torch.cuda.synchronize()
+    fm_err = _bits_err(got, want, 'flatmap main path')
+    if fm_err:
+        raise AssertionError(f'flatmap kernel != plain at the main-path '
+                             f'shape (max |diff| {fm_err})')
+    D, N = a[0].shape
+    A = a[3].shape[2]
+    S = kw['num_segments']
+    f_ms = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw))
+    # the plain version is the torch segment resolve (kernel='xla')
+    f_plain = _time_ms(lambda: merge.resolve_assignments_batch(*a, **kw),
+                       iters=20)
+    # inputs: seg_id, actor, seq int32 + clock int32 [D, N, A] + is_del,
+    # valid bool; outputs: surviving bool + winner, seg_max_actor int32
+    f_bytes = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + 2 * D * S * 4
+    f_bound = f_bytes / _HBM_BYTES_PER_S * 1e3
+    print(f'flatmap_resolve kernel ({card}): device doc set map batch '
+          f'shape D={D} N={N} A={A} S={S}: {f_ms:.4f} ms/launch, plain '
+          f'PyTorch (the torch segment resolve, kernel=\'xla\') '
+          f'{f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_bytes} bytes at '
+          f'3.35 TB/s), max |kernel - plain| {fm_err}', flush=True)
+    kernels.append({
+        'name': 'flatmap_resolve', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/csrc/flatmap_resolve.cu',
+        'replaces': 'automerge_tpu/device/pallas_merge.py:136',
+        'launches': dds_counts['flatmap_resolve'],
+        'max_abs_err': fm_err, 'ms': f_ms, 'plain_ms': f_plain,
+        'bound_ms': f_bound, 'bound_by': 'bytes', 'library_ms': None})
+
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

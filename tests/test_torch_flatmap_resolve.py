@@ -1,0 +1,146 @@
+"""The flat-map resolve: the PyTorch port's plain version
+(``merge.resolve_assignments_batch``, the CPU path of
+``cuda_merge.dispatch_resolve``) against the JAX package's Pallas kernel
+in interpret mode and its XLA segment resolve, on numpy-seeded
+``gen_docset_workload`` batches at the shapes of ``tests/test_pallas.py``
+— exact equality, dtypes included. The CUDA kernel is held against the
+plain version on the card (``cuda``-marked cases; run there with
+``python -m pytest tests/test_torch_flatmap_resolve.py -m cuda``). The
+JAX package is imported inside the tests that compare with it, so the
+card's cases need only the port."""
+
+import numpy as np
+import pytest
+import torch
+
+from automerge_tpu_torch.device import cuda_merge, engine, merge
+from automerge_tpu_torch.device.workloads import (gen_block_workload,
+                                                  gen_docset_workload)
+
+torch.set_num_threads(1)
+
+SHAPES = [(1, 8, 2, 3), (3, 130, 4, 7), (8, 128, 8, 32), (9, 257, 3, 40)]
+KEYS = ('surviving', 'winner', 'seg_max_actor')
+
+
+def _workload(n_docs, n_ops, n_actors, n_keys, seed=0):
+    return gen_docset_workload(n_docs=n_docs, n_ops=n_ops,
+                               n_actors=n_actors, n_keys=n_keys, seed=seed,
+                               del_p=0.1, invalid_p=0.1, cross_clock=True)
+
+
+def _same(jout, tout):
+    for k in KEYS:
+        a = np.asarray(jout[k])
+        b = tout[k].cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize('n_docs,n_ops,n_actors,n_keys', SHAPES)
+def test_plain_matches_jax_pallas_and_xla(n_docs, n_ops, n_actors, n_keys):
+    import jax.numpy as jnp
+    from automerge_tpu.device.merge import resolve_assignments_batch
+    from automerge_tpu.device.pallas_merge import \
+        resolve_assignments_batch_pallas
+    args = _workload(n_docs, n_ops, n_actors, n_keys)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    got = cuda_merge.dispatch_resolve(*(torch.as_tensor(a) for a in args),
+                                      num_segments=n_ops)
+    _same(resolve_assignments_batch(*jargs, num_segments=n_ops), got)
+    _same(resolve_assignments_batch_pallas(*jargs, num_segments=n_ops,
+                                           interpret=True), got)
+
+
+def _tiny(seg_id, actor, seq, clock, is_del, valid):
+    return tuple(torch.as_tensor(np.asarray(a, dt)) for a, dt in (
+        (seg_id, np.int32), (actor, np.int32), (seq, np.int32),
+        (clock, np.int32), (is_del, bool), (valid, bool)))
+
+
+def test_all_deleted_segment():
+    args = _tiny(np.zeros((1, 4)), [[0, 1, 2, 3]], np.ones((1, 4)),
+                 np.zeros((1, 4, 4)), np.ones((1, 4)), np.ones((1, 4)))
+    out = cuda_merge.dispatch_resolve(*args, num_segments=4)
+    assert int(out['winner'][0, 0]) == -1
+    assert not bool(out['surviving'].any())
+    # empty segments: winner -1, seg_max_actor the segment_max identity
+    assert out['winner'][0, 1:].tolist() == [-1] * 3
+    assert out['seg_max_actor'][0].tolist() == [-1] + [-(1 << 31)] * 3
+
+
+def test_supersession_chain():
+    args = _tiny(np.zeros((1, 2)), [[0, 1]], [[1, 1]],
+                 [[[0, 0], [1, 0]]], np.zeros((1, 2)), np.ones((1, 2)))
+    out = cuda_merge.dispatch_resolve(*args, num_segments=2)
+    assert out['surviving'][0].tolist() == [False, True]
+    assert int(out['winner'][0, 0]) == 1
+
+
+def test_workloads_match_the_jax_package():
+    from automerge_tpu.device import workloads as jw
+    for kw in ({'cross_clock': True, 'invalid_p': 0.1}, {}):
+        a = gen_docset_workload(n_docs=5, n_ops=40, n_actors=3, n_keys=6,
+                                seed=3, **kw)
+        b = jw.gen_docset_workload(n_docs=5, n_ops=40, n_actors=3,
+                                   n_keys=6, seed=3, **kw)
+        for x, y in zip(a, b, strict=True):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert gen_block_workload(n_docs=4, n_actors=3, ops_per_change=4,
+                              n_keys=8, seed=2, del_p=0.2).to_changes() == \
+        jw.gen_block_workload(n_docs=4, n_actors=3, ops_per_change=4,
+                              n_keys=8, seed=2, del_p=0.2).to_changes()
+
+
+def test_pick_resolve_kernel_routing_on_the_cpu():
+    assert engine.pick_resolve_kernel('xla') is \
+        merge.resolve_assignments_batch
+    assert engine.pick_resolve_kernel('pallas') is \
+        cuda_merge.dispatch_resolve
+    assert engine.pick_resolve_kernel('auto') is cuda_merge.dispatch_resolve
+    args = tuple(torch.as_tensor(a) for a in _workload(3, 20, 3, 5))
+    before = cuda_merge.launches
+    outs = [engine.pick_resolve_kernel(k)(*args, num_segments=20)
+            for k in ('auto', 'pallas', 'xla')]
+    assert cuda_merge.launches == before       # CPU tensors: plain only
+    for out in outs[1:]:
+        for k in KEYS:
+            assert torch.equal(outs[0][k], out[k])
+    with pytest.raises(ValueError):
+        cuda_merge.resolve_cuda(*args, num_segments=20)
+
+
+def test_batch_merge_docs_kernels_agree_on_the_cpu():
+    docs = gen_block_workload(n_docs=6, n_actors=4, ops_per_change=5,
+                              n_keys=12, seed=9, del_p=0.2).to_changes()
+    outs = [engine.batch_merge_docs(docs, kernel=k, device='cpu')
+            for k in ('auto', 'pallas', 'xla')]
+    assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run on the card: python -m '
+                    'pytest tests/test_torch_flatmap_resolve.py -m cuda)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_docs,n_ops,n_actors,n_keys,n_segs',
+                         [s + (s[1],) for s in SHAPES]
+                         + [(10240, 128, 8, 32, 32), (4, 64, 8, 6000, 6000)])
+def test_cuda_kernel_matches_plain(cuda_device, n_docs, n_ops, n_actors,
+                                   n_keys, n_segs):
+    args = [torch.as_tensor(a).to(cuda_device)
+            for a in _workload(n_docs, n_ops, n_actors, n_keys, seed=5)]
+    # out-of-range segment ids take the sink slot / the wrapped gather
+    args[0][0, :3] = torch.tensor([-1, n_segs, -n_segs - 2],
+                                  dtype=torch.int32)
+    want = merge.resolve_assignments_batch(*args, num_segments=n_segs)
+    before = cuda_merge.launches
+    got = engine.pick_resolve_kernel('auto')(*args, num_segments=n_segs)
+    torch.cuda.synchronize()
+    assert cuda_merge.launches == before + 1
+    for k in KEYS:
+        assert want[k].dtype == got[k].dtype and torch.equal(want[k], got[k])

@@ -53,6 +53,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         'import automerge_tpu_torch.device.cuda_view\n'
         'import automerge_tpu_torch.device.engine\n'
         'import automerge_tpu_torch.device.general_backend\n'
+        'import automerge_tpu_torch.device.backend\n'
+        'import automerge_tpu_torch.device.cuda_build\n'
+        'import automerge_tpu_torch.device.cuda_merge\n'
+        'import automerge_tpu_torch.device.cuda_sequence\n'
+        'import automerge_tpu_torch.device.workloads\n'
+        'import automerge_tpu_torch.backend\n'
+        'import automerge_tpu_torch.sync\n'
         'import automerge_tpu_torch.frontend\n'
         'import automerge_tpu_torch.native\n'
         'new = set(sys.modules) - before\n'
@@ -70,7 +77,9 @@ def test_entry_points_raise_without_cuda():
         pytest.skip('a CUDA card is present: the default device works')
     from automerge_tpu_torch import GeneralDocSet, init_store
     from automerge_tpu_torch.device import general_backend
+    from automerge_tpu_torch.device import backend as device_backend
     from automerge_tpu_torch.device.engine import batch_merge_docs
+    from automerge_tpu_torch.sync import DeviceDocSet
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         GeneralDocSet(4)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -81,6 +90,10 @@ def test_entry_points_raise_without_cuda():
         general_backend.init()
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         batch_merge_docs([[]])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        device_backend.init()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        DeviceDocSet()
 
 
 def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
@@ -102,7 +115,7 @@ def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
 def test_unported_paths_raise_not_implemented():
     from automerge_tpu_torch import GeneralDocSet
     from automerge_tpu_torch.config import Options
-    from automerge_tpu_torch.device import engine, general
+    from automerge_tpu_torch.device import general
     ds = GeneralDocSet(2, device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ds.apply_wire(b'[]')
@@ -110,7 +123,5 @@ def test_unported_paths_raise_not_implemented():
         ds.apply_states({'d': b''})
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         general.apply_general_block_async(ds.store, None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        engine.pick_resolve_kernel('pallas')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         Options().make_mesh()
