@@ -1,5 +1,5 @@
 // Edit-stream kernel: winner/visibility diff -> pre-ordered, delta-sized
-// edit buffers, one thread block per dirty sequence object.
+// edit buffers for every dirty sequence object, in two variants.
 //
 // Replaces the TPU kernel in automerge_tpu/device/pallas_view.py:145-258
 // (_make_edit_kernel, _edit_stream_pallas_core, edit_stream_pallas).
@@ -8,32 +8,52 @@
 // plain indexed load, so this kernel does what the plain version
 // (cuda_view._edit_core) does, directly:
 //
-//   per job row k, per class c in (remove, insert, set):
-//     mask/key/vals from the decoded planes
+//   per job row k, each node falls into at most one class:
 //       remove: pv & ~nv          key = prior idx   vals = (prior idx)
 //       insert: nv & ~pv          key = new idx     vals = (node, new idx)
 //       set:    nv & pv & touched key = new idx     vals = (node, new idx)
-//     1. mark a presence grid at clamp(key, 0, m-1)
-//     2. block-wide exclusive scan of the grid, in chunks of the block
-//        size with a carried offset (CUB BlockScan)
-//     3. each masked node writes its vals at rank = grid[key] when
-//        rank < e_pad (larger ranks are dropped, as in the reference)
-//     4. cnt[k, c] = number of masked nodes (not clamped to e_pad)
+//     a node's rank in its class is the number of class members with a
+//     smaller key (the keys are dense, unique visible indexes); it writes
+//     its vals at that rank when rank < e_pad (larger ranks are dropped,
+//     as in the reference); cnt[k, c] = number of class members (not
+//     clamped to e_pad); every other slot below e_pad holds -1
 //
 // The vis planes are decoded in the loads (the packed word
 // prior_vis<<31 | visible<<30 | (prior_idx+1)<<15 | (new_idx+1), or the
 // four cols planes), and touched is read straight from the np.packbits
-// plane (MSB first) — the unpack that dispatch_edit_stream did in the
-// TPU package is fused here. The grid lives in a [K, m] int32 scratch
-// tensor the caller allocates, so no shared-memory limit caps m.
+// plane (MSB first).
+//
+// Presence is a bitmask: for each class, ceil(m/32) words with bit
+// clamp(key, 0, m-1) set (atomicOr). Each word carries the exclusive
+// prefix of the popcounts of the words below it, so a node's rank is
+// prefix[key/32] + popc(word[key/32] & bits below key) — one 8-byte
+// shared-memory load. The prefix runs over words, not nodes (32 to a
+// word), and the number of set bits of a class marks where its -1 fill
+// starts, so each output slot is written exactly once.
+//
+// Warp variant (es_warp_kernel; the port dispatches m <=
+// cuda_view.M_WARP_ES to it): one warp per job row, several rows per CTA,
+// only __syncwarp between the steps. Each lane decodes its nodes
+// (l = 32t + lane) once into registers (class and key) for m <= 1024, the
+// counts come from warp reductions, and the prefix over words is a warp
+// shuffle scan. Above m = 1024 the same kernel decodes a node again for
+// its rank (the second read comes from L1/L2).
+//
+// Block variant (es_block_kernel, wider rows): one thread block per row,
+// the same bitmasks in the block's shared memory (24 bytes per 32 nodes:
+// 6 KB per class pair at the packed format's 32,767 nodes), a CUB block
+// scan over the words in chunks with a carried offset, a second decode
+// for the ranks. Past the shared-memory cap (about 270k nodes) the
+// bitmasks live in a global scratch of K * 6 * ceil(m/32) words that the
+// caller allocates.
 //
 // Bound on the H100: per call it must read K*m*4 + K*ceil(m/8) bytes
 // (packed) and write 5*K*e_pad*4 + 12*K bytes, with O(K*m) integer work:
-// memory- and launch-bound, far below any arithmetic limit. This first
-// version re-reads the planes once per class and pass (6 reads of each
-// word, mostly from L1/L2) and keeps the grid in device memory; staging
-// a row in shared memory is the obvious next step.
+// memory- and latency-bound, far below any arithmetic limit. The warp
+// variant reads each input byte once, keeps no [K, m] scratch, and runs
+// a row in about ten warp-synchronous steps.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -42,181 +62,406 @@
 
 namespace {
 
-struct Node {
-  bool pv, nv, touched;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmemLimit = 200 * 1024;
+constexpr int kWarpMaxRows = 8;       // job rows (warps) per CTA
+constexpr int kBlock = 512;           // threads of the block variant
+constexpr int kNone = 3;              // class of a node in no class
+
+__host__ __device__ inline int n_words(int m) { return (m + 31) >> 5; }
+
+// 32-bit words of one row's bitmasks: (mask, prefix) per word per class
+__host__ __device__ inline size_t row_words(int m) {
+  return static_cast<size_t>(6) * n_words(m);
+}
+
+// class of node l and its key (the raw index it ranks by and writes)
+__device__ __forceinline__ int classify(int fmt, const int32_t* vis,
+                                        const uint8_t* pvp,
+                                        const uint8_t* nvp,
+                                        const int32_t* pip,
+                                        const int32_t* nip,
+                                        const uint8_t* trow, size_t off,
+                                        int l, int* key) {
+  bool pv, nv;
   int pi, ni;
-};
-
-__device__ __forceinline__ Node decode(int fmt, const int32_t* vis,
-                                       const uint8_t* pvp,
-                                       const uint8_t* nvp,
-                                       const int32_t* pip,
-                                       const int32_t* nip,
-                                       const uint8_t* trow, size_t off,
-                                       int l) {
-  Node nd;
   if (fmt == 0) {
-    const uint32_t v = static_cast<uint32_t>(vis[off + l]);
-    nd.pv = (v >> 31) & 1u;
-    nd.nv = (v >> 30) & 1u;
-    nd.pi = static_cast<int>((v >> 15) & 0x7FFFu) - 1;
-    nd.ni = static_cast<int>(v & 0x7FFFu) - 1;
+    const uint32_t v = static_cast<uint32_t>(__ldg(vis + off + l));
+    pv = (v >> 31) & 1u;
+    nv = (v >> 30) & 1u;
+    pi = static_cast<int>((v >> 15) & 0x7FFFu) - 1;
+    ni = static_cast<int>(v & 0x7FFFu) - 1;
   } else {
-    nd.pv = pvp[off + l] != 0;
-    nd.nv = nvp[off + l] != 0;
-    nd.pi = pip[off + l];
-    nd.ni = nip[off + l];
+    pv = __ldg(pvp + off + l) != 0;
+    nv = __ldg(nvp + off + l) != 0;
+    pi = __ldg(pip + off + l);
+    ni = __ldg(nip + off + l);
   }
-  nd.touched = (trow[l >> 3] >> (7 - (l & 7))) & 1;
-  return nd;
+  if (pv && !nv) {
+    *key = pi;
+    return 0;
+  }
+  *key = ni;
+  if (nv && !pv) return 1;
+  if (nv && pv && ((__ldg(trow + (l >> 3)) >> (7 - (l & 7))) & 1)) return 2;
+  return kNone;
 }
 
-// class c of node nd: whether it is masked, and its grid key
-__device__ __forceinline__ bool in_class(int c, const Node& nd, int* key) {
+__device__ __forceinline__ int clamp_key(int key, int m) {
+  return min(max(key, 0), m - 1);
+}
+
+// set the presence bit of a classified node (pm: the row's bitmasks)
+__device__ __forceinline__ void mark(uint32_t* pm, int nw, int c, int key,
+                                     int m) {
+  const int kc = clamp_key(key, m);
+  atomicOr(pm + 2 * (c * nw + (kc >> 5)), 1u << (kc & 31));
+}
+
+// write a classified node's values at its rank (dropped at e_pad and up)
+__device__ __forceinline__ void emit(const uint32_t* pm, int nw, int c,
+                                     int key, int l, int m, int e_pad,
+                                     size_t eoff, int32_t* rm_idx,
+                                     int32_t* ins_node, int32_t* ins_idx,
+                                     int32_t* set_node, int32_t* set_idx) {
+  const int kc = clamp_key(key, m);
+  const uint2 e =
+      *reinterpret_cast<const uint2*>(pm + 2 * (c * nw + (kc >> 5)));
+  const int r = static_cast<int>(e.y) +
+                __popc(e.x & ((1u << (kc & 31)) - 1u));
+  if (r >= e_pad) return;
   if (c == 0) {
-    *key = nd.pi;
-    return nd.pv && !nd.nv;
+    rm_idx[eoff + r] = key;
+  } else if (c == 1) {
+    ins_node[eoff + r] = l;
+    ins_idx[eoff + r] = key;
+  } else {
+    set_node[eoff + r] = l;
+    set_idx[eoff + r] = key;
   }
-  *key = nd.ni;
-  if (c == 1) return nd.nv && !nd.pv;
-  return nd.nv && nd.pv && nd.touched;
 }
 
-template <int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
-edit_stream_kernel(int fmt, const int32_t* __restrict__ vis,
-                   const uint8_t* __restrict__ pvp,
-                   const uint8_t* __restrict__ nvp,
-                   const int32_t* __restrict__ pip,
-                   const int32_t* __restrict__ nip,
-                   const uint8_t* __restrict__ touched,
-                   int32_t* __restrict__ rm_idx,
-                   int32_t* __restrict__ ins_node,
-                   int32_t* __restrict__ ins_idx,
-                   int32_t* __restrict__ set_node,
-                   int32_t* __restrict__ set_idx,
-                   int32_t* __restrict__ cnt, int32_t* grid_all, int m,
-                   int mb, int e_pad) {
-  using BlockScan = cub::BlockScan<int, BLOCK>;
-  __shared__ typename BlockScan::TempStorage scan_tmp;
-  __shared__ int s_count;
-
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t off = static_cast<size_t>(k) * m;
-  const size_t eoff = static_cast<size_t>(k) * e_pad;
-  const uint8_t* trow = touched + static_cast<size_t>(k) * mb;
-  int32_t* grid = grid_all + off;
-
-  for (int e = tid; e < e_pad; e += BLOCK) {
-    rm_idx[eoff + e] = -1;
+// the -1 fill: slots at or past each class's number of set bits
+__device__ __forceinline__ void fill(int e, int e_pad, const int bits[3],
+                                     size_t eoff, int32_t* rm_idx,
+                                     int32_t* ins_node, int32_t* ins_idx,
+                                     int32_t* set_node, int32_t* set_idx) {
+  if (e >= e_pad) return;
+  if (e >= bits[0]) rm_idx[eoff + e] = -1;
+  if (e >= bits[1]) {
     ins_node[eoff + e] = -1;
     ins_idx[eoff + e] = -1;
+  }
+  if (e >= bits[2]) {
     set_node[eoff + e] = -1;
     set_idx[eoff + e] = -1;
   }
+}
 
+// ---- warp variant: one warp per job row ----------------------------------
+
+// C > 0: a lane keeps its C nodes (l = 32t + lane) decoded in registers,
+// m <= 32*C. C == 0: any m; pass 2 decodes again.
+template <int C>
+__global__ void __launch_bounds__(32 * kWarpMaxRows)
+es_warp_kernel(int fmt, const int32_t* __restrict__ vis,
+               const uint8_t* __restrict__ pvp,
+               const uint8_t* __restrict__ nvp,
+               const int32_t* __restrict__ pip,
+               const int32_t* __restrict__ nip,
+               const uint8_t* __restrict__ touched,
+               int32_t* __restrict__ rm_idx, int32_t* __restrict__ ins_node,
+               int32_t* __restrict__ ins_idx,
+               int32_t* __restrict__ set_node,
+               int32_t* __restrict__ set_idx, int32_t* __restrict__ cnt,
+               int K, int m, int mb, int e_pad) {
+  extern __shared__ __align__(16) uint32_t es_smem[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int k = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (k >= K) return;
+  const int nw = n_words(m);
+  uint32_t* pm = es_smem + wid * row_words(m);
+  const size_t off = static_cast<size_t>(k) * m;
+  const size_t eoff = static_cast<size_t>(k) * e_pad;
+  const uint8_t* trow = touched + static_cast<size_t>(k) * mb;
+
+  for (int w = lane; w < 3 * nw; w += 32) pm[2 * w] = 0;
+  __syncwarp();
+
+  // pass 1: classify, mark presence, count
+  constexpr int CR = C > 0 ? C : 1;
+  int key[CR];
+  uint32_t cls[(CR + 15) / 16];      // 2 bits a node
+  int mine[3] = {0, 0, 0};
+  if constexpr (C > 0) {
+#pragma unroll
+    for (int q = 0; q < (CR + 15) / 16; ++q) cls[q] = 0;
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int l = 32 * t + lane;
+      int c = kNone;
+      key[t] = 0;
+      if (l < m) {
+        c = classify(fmt, vis, pvp, nvp, pip, nip, trow, off, l, &key[t]);
+        if (c != kNone) {
+          mark(pm, nw, c, key[t], m);
+          ++mine[c];
+        }
+      }
+      cls[t >> 4] |= static_cast<uint32_t>(c) << (2 * (t & 15));
+    }
+  } else {
+    for (int l = lane; l < m; l += 32) {
+      int kk;
+      const int c = classify(fmt, vis, pvp, nvp, pip, nip, trow, off, l, &kk);
+      if (c != kNone) {
+        mark(pm, nw, c, kk, m);
+        ++mine[c];
+      }
+    }
+  }
+  __syncwarp();
+
+  // exclusive prefix of the word popcounts, per class (shuffle scan over
+  // 32 words at a time, carried); bits = set bits of the class
+  int bits[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    for (int l = tid; l < m; l += BLOCK) grid[l] = 0;
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-
-    // 1. presence grid + class count
-    int mine = 0;
-    for (int l = tid; l < m; l += BLOCK) {
-      const Node nd = decode(fmt, vis, pvp, nvp, pip, nip, trow, off, l);
-      int key;
-      if (in_class(c, nd, &key)) {
-        grid[min(max(key, 0), m - 1)] = 1;
-        ++mine;
-      }
-    }
-    if (mine) atomicAdd(&s_count, mine);
-    __syncthreads();
-
-    // 2. exclusive scan over m in chunks, carrying the running total
     int carry = 0;
-    for (int base = 0; base < m; base += BLOCK) {
-      const int l = base + tid;
-      const int x = l < m ? grid[l] : 0;
-      int y, total;
-      BlockScan(scan_tmp).ExclusiveSum(x, y, total);
-      if (l < m) grid[l] = y + carry;
-      carry += total;
-      __syncthreads();       // scan_tmp reuse + grid visibility
+    for (int w0 = 0; w0 < nw; w0 += 32) {
+      const int w = w0 + lane;
+      const int x = w < nw ? __popc(pm[2 * (c * nw + w)]) : 0;
+      int inc = x;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, inc, d);
+        if (lane >= d) inc += y;
+      }
+      if (w < nw) pm[2 * (c * nw + w) + 1] = carry + inc - x;
+      carry += __shfl_sync(kFull, inc, 31);
     }
+    bits[c] = carry;
+  }
+  __syncwarp();
 
-    // 3. compaction: vals at rank, ranks >= e_pad dropped
-    for (int l = tid; l < m; l += BLOCK) {
-      const Node nd = decode(fmt, vis, pvp, nvp, pip, nip, trow, off, l);
-      int key;
-      if (!in_class(c, nd, &key)) continue;
-      const int r = grid[min(max(key, 0), m - 1)];
-      if (r >= e_pad) continue;
-      if (c == 0) {
-        rm_idx[eoff + r] = nd.pi;
-      } else if (c == 1) {
-        ins_node[eoff + r] = l;
-        ins_idx[eoff + r] = nd.ni;
-      } else {
-        set_node[eoff + r] = l;
-        set_idx[eoff + r] = nd.ni;
+  // pass 2: every member writes at its rank; the fill takes the rest
+  if constexpr (C > 0) {
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int c = (cls[t >> 4] >> (2 * (t & 15))) & 3;
+      if (c != kNone) {
+        emit(pm, nw, c, key[t], 32 * t + lane, m, e_pad, eoff, rm_idx,
+             ins_node, ins_idx, set_node, set_idx);
       }
     }
-    // 4. the count, then a barrier before the next class clears the grid
-    if (tid == 0) cnt[static_cast<size_t>(k) * 3 + c] = s_count;
-    __syncthreads();
+  } else {
+    for (int l = lane; l < m; l += 32) {
+      int kk;
+      const int c = classify(fmt, vis, pvp, nvp, pip, nip, trow, off, l, &kk);
+      if (c != kNone) {
+        emit(pm, nw, c, kk, l, m, e_pad, eoff, rm_idx, ins_node, ins_idx,
+             set_node, set_idx);
+      }
+    }
+  }
+  for (int e = lane; e < e_pad; e += 32) {
+    fill(e, e_pad, bits, eoff, rm_idx, ins_node, ins_idx, set_node,
+         set_idx);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) mine[c] = __reduce_add_sync(kFull, mine[c]);
+  if (lane == 0) {
+    cnt[static_cast<size_t>(k) * 3] = mine[0];
+    cnt[static_cast<size_t>(k) * 3 + 1] = mine[1];
+    cnt[static_cast<size_t>(k) * 3 + 2] = mine[2];
   }
 }
 
-template <int BLOCK>
-void launch(int fmt, const int32_t* vis, const uint8_t* pvp,
-            const uint8_t* nvp, const int32_t* pip, const int32_t* nip,
-            const uint8_t* touched, int32_t* rm_idx, int32_t* ins_node,
-            int32_t* ins_idx, int32_t* set_node, int32_t* set_idx,
-            int32_t* cnt, int32_t* grid, int K, int m, int mb, int e_pad,
-            cudaStream_t stream) {
-  edit_stream_kernel<BLOCK><<<K, BLOCK, 0, stream>>>(
-      fmt, vis, pvp, nvp, pip, nip, touched, rm_idx, ins_node, ins_idx,
-      set_node, set_idx, cnt, grid, m, mb, e_pad);
+// ---- block variant: one thread block per job row -------------------------
+
+__global__ void __launch_bounds__(kBlock)
+es_block_kernel(int fmt, const int32_t* __restrict__ vis,
+                const uint8_t* __restrict__ pvp,
+                const uint8_t* __restrict__ nvp,
+                const int32_t* __restrict__ pip,
+                const int32_t* __restrict__ nip,
+                const uint8_t* __restrict__ touched,
+                int32_t* __restrict__ rm_idx,
+                int32_t* __restrict__ ins_node,
+                int32_t* __restrict__ ins_idx,
+                int32_t* __restrict__ set_node,
+                int32_t* __restrict__ set_idx, int32_t* __restrict__ cnt,
+                uint32_t* scratch, int m, int mb, int e_pad, int use_smem) {
+  using BlockScan = cub::BlockScan<int, kBlock>;
+  __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ int s_count[3];
+  extern __shared__ __align__(16) uint32_t es_smem[];
+
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nw = n_words(m);
+  uint32_t* pm = use_smem ? es_smem : scratch + k * row_words(m);
+  const size_t off = static_cast<size_t>(k) * m;
+  const size_t eoff = static_cast<size_t>(k) * e_pad;
+  const uint8_t* trow = touched + static_cast<size_t>(k) * mb;
+
+  for (int w = tid; w < 3 * nw; w += kBlock) pm[2 * w] = 0;
+  if (tid < 3) s_count[tid] = 0;
+  __syncthreads();
+
+  int mine[3] = {0, 0, 0};
+  for (int l = tid; l < m; l += kBlock) {
+    int kk;
+    const int c = classify(fmt, vis, pvp, nvp, pip, nip, trow, off, l, &kk);
+    if (c != kNone) {
+      mark(pm, nw, c, kk, m);
+      ++mine[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (mine[c]) atomicAdd(&s_count[c], mine[c]);
+  }
+  __syncthreads();
+
+  int bits[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    int carry = 0;
+    for (int w0 = 0; w0 < nw; w0 += kBlock) {
+      const int w = w0 + tid;
+      const int x = w < nw ? __popc(pm[2 * (c * nw + w)]) : 0;
+      int y, total;
+      BlockScan(scan_tmp).ExclusiveSum(x, y, total);
+      if (w < nw) pm[2 * (c * nw + w) + 1] = carry + y;
+      carry += total;
+      __syncthreads();     // scan_tmp reuse
+    }
+    bits[c] = carry;
+  }
+
+  for (int l = tid; l < m; l += kBlock) {
+    int kk;
+    const int c = classify(fmt, vis, pvp, nvp, pip, nip, trow, off, l, &kk);
+    if (c != kNone) {
+      emit(pm, nw, c, kk, l, m, e_pad, eoff, rm_idx, ins_node, ins_idx,
+           set_node, set_idx);
+    }
+  }
+  for (int e = tid; e < e_pad; e += kBlock) {
+    fill(e, e_pad, bits, eoff, rm_idx, ins_node, ins_idx, set_node,
+         set_idx);
+  }
+  if (tid < 3) cnt[static_cast<size_t>(k) * 3 + tid] = s_count[tid];
+}
+
+struct Args {
+  int fmt;
+  const int32_t* vis;
+  const uint8_t* pv;
+  const uint8_t* nv;
+  const int32_t* pi;
+  const int32_t* ni;
+  const uint8_t* touched;
+  int32_t* rm_idx;
+  int32_t* ins_node;
+  int32_t* ins_idx;
+  int32_t* set_node;
+  int32_t* set_idx;
+  int32_t* cnt;
+  int K, m, mb, e_pad;
+  cudaStream_t stream;
+};
+
+template <int C>
+int launch_warp(const Args& a) {
+  const size_t wbytes = row_words(a.m) * 4;
+  const int rows = static_cast<int>(
+      std::min<size_t>(kWarpMaxRows, kSmemLimit / wbytes));
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wbytes * rows;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        es_warp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (a.K + rows - 1) / rows;
+  es_warp_kernel<C><<<grid, 32 * rows, smem, a.stream>>>(
+      a.fmt, a.vis, a.pv, a.nv, a.pi, a.ni, a.touched, a.rm_idx, a.ins_node,
+      a.ins_idx, a.set_node, a.set_idx, a.cnt, a.K, a.m, a.mb, a.e_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_block(const Args& a, uint32_t* scratch) {
+  const size_t bytes = row_words(a.m) * 4;
+  const int use_smem = bytes <= static_cast<size_t>(kSmemLimit);
+  if (!use_smem && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = use_smem ? bytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        es_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  es_block_kernel<<<a.K, kBlock, smem, a.stream>>>(
+      a.fmt, a.vis, a.pv, a.nv, a.pi, a.ni, a.touched, a.rm_idx, a.ins_node,
+      a.ins_idx, a.set_node, a.set_idx, a.cnt, scratch, a.m, a.mb, a.e_pad,
+      use_smem);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). fmt 0: `vis` is the packed int32
-// [K, m] word plane; fmt 1: pv/nv are uint8 (bool) and pi/ni int32
-// [K, m] planes. touched is uint8 [K, mb] (mb = ceil(m / 8)). Outputs
-// are int32 [K, e_pad] x 5 and [K, 3]; grid is int32 [K, m] scratch.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int edit_stream_launch(int fmt, const void* vis, const void* pv,
-                                  const void* nv, const void* pi,
-                                  const void* ni, const void* touched,
-                                  void* rm_idx, void* ins_node,
-                                  void* ins_idx, void* set_node,
-                                  void* set_idx, void* cnt, void* grid,
-                                  int K, int m, int mb, int e_pad,
-                                  void* stream) {
+// Whether the block variant at width m keeps its bitmasks in shared
+// memory; when it does not, the caller passes a global scratch of
+// K * 6 * ceil(m/32) uint32 words.
+extern "C" int edit_stream_block_uses_smem(int m) {
+  return row_words(m) * 4 <= static_cast<size_t>(kSmemLimit);
+}
+
+// C entry point (bound with ctypes). variant 0: one warp per row; 1: one
+// block per row. fmt 0: `vis` is the packed int32 [K, m] word plane;
+// fmt 1: pv/nv are uint8 (bool) and pi/ni int32 [K, m] planes. touched is
+// uint8 [K, mb] (mb = ceil(m / 8)). Outputs are int32 [K, e_pad] x 5 and
+// [K, 3]; scratch is null unless the block variant needs it. Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int edit_stream_launch(int variant, int fmt, const void* vis,
+                                  const void* pv, const void* nv,
+                                  const void* pi, const void* ni,
+                                  const void* touched, void* rm_idx,
+                                  void* ins_node, void* ins_idx,
+                                  void* set_node, void* set_idx, void* cnt,
+                                  void* scratch, int K, int m, int mb,
+                                  int e_pad, void* stream) {
   if (K <= 0) return 0;
-  auto args = [&](auto launcher) {
-    launcher(fmt, static_cast<const int32_t*>(vis),
-             static_cast<const uint8_t*>(pv),
-             static_cast<const uint8_t*>(nv),
-             static_cast<const int32_t*>(pi),
-             static_cast<const int32_t*>(ni),
-             static_cast<const uint8_t*>(touched),
-             static_cast<int32_t*>(rm_idx), static_cast<int32_t*>(ins_node),
-             static_cast<int32_t*>(ins_idx),
-             static_cast<int32_t*>(set_node),
-             static_cast<int32_t*>(set_idx), static_cast<int32_t*>(cnt),
-             static_cast<int32_t*>(grid), K, m, mb, e_pad,
-             static_cast<cudaStream_t>(stream));
-  };
-  if (m <= 64) {
-    args(launch<64>);
-  } else if (m <= 128) {
-    args(launch<128>);
-  } else {
-    args(launch<256>);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Args a{fmt,
+               static_cast<const int32_t*>(vis),
+               static_cast<const uint8_t*>(pv),
+               static_cast<const uint8_t*>(nv),
+               static_cast<const int32_t*>(pi),
+               static_cast<const int32_t*>(ni),
+               static_cast<const uint8_t*>(touched),
+               static_cast<int32_t*>(rm_idx),
+               static_cast<int32_t*>(ins_node),
+               static_cast<int32_t*>(ins_idx),
+               static_cast<int32_t*>(set_node),
+               static_cast<int32_t*>(set_idx),
+               static_cast<int32_t*>(cnt),
+               K,
+               m,
+               mb,
+               e_pad,
+               static_cast<cudaStream_t>(stream)};
+  if (variant == 1) return launch_block(a, static_cast<uint32_t*>(scratch));
+  if (m <= 32) return launch_warp<1>(a);
+  if (m <= 64) return launch_warp<2>(a);
+  if (m <= 128) return launch_warp<4>(a);
+  if (m <= 256) return launch_warp<8>(a);
+  if (m <= 512) return launch_warp<16>(a);
+  if (m <= 1024) return launch_warp<32>(a);
+  return launch_warp<0>(a);
 }

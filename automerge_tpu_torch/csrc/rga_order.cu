@@ -1,16 +1,17 @@
-// RGA ordering from the child-sorted permutation: tree threading, the
-// ancestor climb, list ranking and the visibility scan of every dirty
-// sequence object, one thread block per job row.
+// RGA document order of every dirty sequence object, in two variants.
 //
 // Replaces the TPU kernel in automerge_tpu/device/pallas_sequence.py:63-208
 // (_make_kernel, _rga_pallas_padded, rga_order_batch_pallas). That kernel
 // sends every gather and scatter through one-hot MXU matmuls over [m, m]
-// tiles (O(m^2) per round) because the TPU has no fast gather; on Hopper
-// a gather is a plain indexed load, so this kernel does what the plain
-// version (sequence._order_from_sorted_plain) does, directly, with the
-// same round count and the same sentinel slots:
+// tiles (O(m^2) per round) because the TPU has no fast gather, and leaves
+// the child sort to XLA. On Hopper a gather is a plain indexed load, so
+// both variants compute the plain version (sequence._rga_order_plain:
+// sequence._child_sort, then sequence._order_from_sorted_plain) directly,
+// with the same round count and the same sentinel slots:
 //
 //   per job row (n = m nodes; node 0 is the head):
+//     0. sort: parent_adj = parent for valid non-head nodes, else n;
+//        the stable sort of (parent_adj asc, elem desc, actor desc)
 //     1. thread: p_sorted[s] = parent_adj[order[s]];
 //        first_child[p_sorted[s]] = order[s] at each sort-segment start
 //        (p == n is the sink), next_sibling[order[s]] = order[s+1] when
@@ -26,24 +27,47 @@
 //     4. scan: node_at_pos[tree_pos[i]] = i for on-chain nodes (valid,
 //        tree_pos > 0) over a fill of n-1, position 0 set to 0 when any
 //        node is off the chain; vis_ordered[p] = on_chain & visible at
-//        node_at_pos[p]; an exclusive block scan in chunks with a carried
-//        offset (CUB); vis_index[i] = rank at tree_pos[i] for visible
-//        on-chain nodes, else -1; length = their count
-//
-// Every doubling round reads one plane and writes the other (ping-pong
-// buffers, one __syncthreads() per round): doubling in place with
-// strided threads would race. The four working planes of n+1 words live
-// in dynamic shared memory while they fit (m <= 12,799); past that the
-// same kernel runs on a global-memory scratch tensor the caller
-// allocates, so any m works.
+//        node_at_pos[p]; an exclusive scan of it over positions;
+//        vis_index[i] = rank at tree_pos[i] for visible on-chain nodes,
+//        else -1; length = their count
 //
 // Bound on the H100: per call it must read K*m*(4+4+4+1+1) bytes and
-// write K*m*12 + K*4 bytes; the pointer doubling does O(K*m*log m)
-// dependent loads, served from shared memory below the cap. At the
-// shapes of the main path (m = 64) it is bound by memory traffic and
-// launch latency.
+// write K*m*12 + K*4 bytes. The work is O(m log m) dependent shared-memory
+// loads per row (and O(m^2) compares for the narrow variant's sort), so at
+// the main path's width (m = 64) the time is set by the latency of each
+// row's chain of dependent steps, not by bytes or arithmetic: what a
+// design can do is run many rows at once with few barriers between steps.
+//
+// Narrow variant (rga_narrow_kernel, m <= 512; the port dispatches
+// m <= cuda_sequence.M_NARROW to it): one warp per job row and several
+// rows per CTA, so a row's steps are separated only by __syncwarp. It
+// takes the raw planes and does step 0 itself: node i's sorted slot is
+// the number of nodes whose key (parent_adj, -elem, -actor, index) is
+// lexicographically smaller, a full rank count (m^2/32 compares a lane)
+// that equals the stable sort exactly, ties included. The compares are
+// what the kernel spends most of its instructions on, so a row whose
+// parent_adj and elem and actor spans fit packs (parent_adj, elem desc,
+// actor desc) order-preservingly into one u32 (the main path's rows) or
+// u64 word and breaks ties by index through the loop order, one integer
+// compare a pair; other rows compare the full key as two u64 words. Each
+// warp stages its row through its own slice of shared memory (16-byte
+// loads where the row is aligned), keeps each lane's nodes (i = 32t +
+// lane) in registers, ping-pongs the doubling planes, scans visibility
+// with a ballot and a popcount per 32 positions and a carried offset,
+// and writes every output once, coalesced. Nothing goes through global
+// scratch.
+//
+// Wide variant (rga_order_kernel, any m, after a torch child sort): one
+// thread block per job row, four planes of m+1 words with one
+// __syncthreads per doubling round, a CUB block scan in chunks with a
+// carried offset. The planes live in dynamic shared memory while they fit
+// (m <= 12,799) and in a global scratch the caller allocates past that.
+// An O(m^2) rank count would be pathological at those widths (a 12,799-
+// node list built by prepending needs 164M compares in one block), so the
+// wide variant keeps the O(m log m) sort outside.
 
 #include <cstddef>
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -233,6 +257,467 @@ int launch(const int32_t* order, const int32_t* parent_adj,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- narrow variant: one warp per job row --------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNarrowMaxM = 512;
+constexpr int kNarrowMaxRows = 8;       // job rows (warps) per CTA
+
+__host__ __device__ inline size_t round16(size_t b) {
+  return (b + 15) & ~static_cast<size_t>(15);
+}
+
+// Bytes of one warp's slice: the staged visible and valid bytes (16 each
+// rounded up), two u64 sort keys, parent_adj and the sorted order per
+// node, then four planes of m+1 words; a multiple of 16.
+__host__ __device__ inline size_t narrow_warp_bytes(int m) {
+  const size_t n = static_cast<size_t>(m);
+  return round16(2 * round16(n) + n * (8 + 8 + 4 + 4) +
+                 4 * plane_words(m) * 4);
+}
+
+// The full sort key as two u64 words, ordered as (parent_adj asc, elem
+// desc, actor desc, index asc) is: the signed values map
+// order-preservingly to unsigned (x ^ 0x80000000), descending ones are
+// complemented, so no negation can wrap.
+__device__ __forceinline__ uint64_t key_hi(int padj, int elem) {
+  return (static_cast<uint64_t>(static_cast<uint32_t>(padj) ^ 0x80000000u)
+          << 32) |
+         static_cast<uint64_t>(~(static_cast<uint32_t>(elem) ^ 0x80000000u));
+}
+__device__ __forceinline__ uint64_t key_lo(int actor, int i) {
+  return (static_cast<uint64_t>(~(static_cast<uint32_t>(actor) ^
+                                  0x80000000u))
+          << 32) |
+         static_cast<uint32_t>(i);
+}
+
+template <typename Key>
+__device__ __forceinline__ Key pack_key(int padj, int elem, int actor,
+                                        int emax, int amax, int be, int ba) {
+  return (static_cast<Key>(padj) << (be + ba)) |
+         (static_cast<Key>(static_cast<uint32_t>(emax) -
+                           static_cast<uint32_t>(elem))
+          << ba) |
+         static_cast<Key>(static_cast<uint32_t>(amax) -
+                          static_cast<uint32_t>(actor));
+}
+
+// slot[t] = number of nodes whose full key is smaller than node
+// 32t + lane's (128-bit compares: any values).
+template <int C>
+__device__ __forceinline__ void rank_full(const uint64_t* khi,
+                                          const uint64_t* klo, int n,
+                                          const uint64_t (&hi)[C],
+                                          const uint64_t (&lo)[C],
+                                          int (&slot)[C]) {
+  for (int j = 0; j < n; ++j) {
+    const uint64_t hj = khi[j];
+    const uint64_t lj = klo[j];
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      slot[t] += (hj < hi[t]) | ((hj == hi[t]) & (lj < lo[t]));
+    }
+  }
+}
+
+// The same count from one packed key per node (u32 or u64) that orders
+// (parent_adj, elem desc, actor desc) but not the index: node j sorts
+// before node i when key_j < key_i, or key_j == key_i and j < i, that is
+// key_j < key_i + (j < i) (keys stay below the type's top bit, so the +1
+// cannot wrap). j runs in chunks of 32, so whether j < i is known at
+// compile time except in a lane's own chunk.
+template <int C, typename Key>
+__device__ __forceinline__ void rank_packed(const Key* key, int n, int lane,
+                                            const Key (&k)[C],
+                                            int (&slot)[C]) {
+  Key k1[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) k1[t] = k[t] + 1;
+#pragma unroll
+  for (int jc = 0; jc < C; ++jc) {
+    const int jn = min(32, n - 32 * jc);
+#pragma unroll 4
+    for (int jj = 0; jj < jn; ++jj) {
+      const Key kj = key[32 * jc + jj];
+#pragma unroll
+      for (int t = 0; t < C; ++t) {
+        const Key kt = jc < t ? k1[t]
+                       : jc > t ? k[t] : (jj < lane ? k1[t] : k[t]);
+        slot[t] += kj < kt;
+      }
+    }
+  }
+}
+
+// Copy a row of n words (bytes) from global into shared memory: 16-byte
+// loads when the row starts 16-byte aligned, single loads otherwise and
+// for the tail.
+__device__ __forceinline__ void stage_words(const int32_t* __restrict__ g,
+                                            int32_t* s, int n, int lane) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int n4 = n >> 2;
+    const int4* g4 = reinterpret_cast<const int4*>(g);
+    for (int q = lane; q < n4; q += 32) {
+      const int4 v = __ldg(g4 + q);
+      s[4 * q] = v.x;
+      s[4 * q + 1] = v.y;
+      s[4 * q + 2] = v.z;
+      s[4 * q + 3] = v.w;
+    }
+    done = 4 * n4;
+  }
+  for (int i = done + lane; i < n; i += 32) s[i] = __ldg(g + i);
+}
+
+__device__ __forceinline__ void stage_bytes(const uint8_t* __restrict__ g,
+                                            uint8_t* s, int n, int lane) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int n16 = n >> 4;
+    const uint4* g4 = reinterpret_cast<const uint4*>(g);
+    uint32_t* s4 = reinterpret_cast<uint32_t*>(s);   // s is 16-byte aligned
+    for (int q = lane; q < n16; q += 32) {
+      const uint4 v = __ldg(g4 + q);
+      s4[4 * q] = v.x;
+      s4[4 * q + 1] = v.y;
+      s4[4 * q + 2] = v.z;
+      s4[4 * q + 3] = v.w;
+    }
+    done = 16 * n16;
+  }
+  for (int i = done + lane; i < n; i += 32) s[i] = __ldg(g + i);
+}
+
+// C = ceil(m / 32) rounded up to a power of two: each lane owns nodes
+// i = 32t + lane, t < C, and keeps their values in registers.
+template <int C>
+__global__ void __launch_bounds__(32 * kNarrowMaxRows)
+rga_narrow_kernel(const int32_t* __restrict__ parent,
+                  const int32_t* __restrict__ elem,
+                  const int32_t* __restrict__ actor,
+                  const uint8_t* __restrict__ visible,
+                  const uint8_t* __restrict__ valid,
+                  int32_t* __restrict__ tree_pos,
+                  int32_t* __restrict__ vis_index,
+                  int32_t* __restrict__ node_at_pos,
+                  int32_t* __restrict__ length, int K, int m, int rounds,
+                  int warp_bytes) {
+  extern __shared__ __align__(16) unsigned char narrow_smem[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int k = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (k >= K) return;
+  const int n = m;
+  const int W = n + 1;
+
+  // this warp's slice: staged bytes, keys, parent_adj, order, four
+  // planes (P0..P3)
+  unsigned char* wb = narrow_smem + static_cast<size_t>(wid) * warp_bytes;
+  uint8_t* vis_s = wb;
+  uint8_t* val_s = vis_s + round16(n);
+  uint64_t* khi = reinterpret_cast<uint64_t*>(val_s + round16(n));
+  uint64_t* klo = khi + n;
+  int32_t* pa = reinterpret_cast<int32_t*>(klo + n);
+  int32_t* ord = pa + n;
+  int32_t* P0 = ord + n;
+  int32_t* P1 = P0 + W;
+  int32_t* P2 = P1 + W;
+  int32_t* P3 = P2 + W;
+  const size_t off = static_cast<size_t>(k) * m;
+
+  // ---- stage the row: parent -> P2, elem -> P0, actor -> P1 ----
+  stage_words(parent + off, P2, n, lane);
+  stage_words(elem + off, P0, n, lane);
+  stage_words(actor + off, P1, n, lane);
+  stage_bytes(visible + off, vis_s, n, lane);
+  stage_bytes(valid + off, val_s, n, lane);
+  __syncwarp();
+
+  int par[C], padj[C], el[C], ac[C];
+  bool vis[C], val[C];
+  int pmin = INT32_MAX, pmax = INT32_MIN, emin = INT32_MAX;
+  int emax = INT32_MIN, amin = INT32_MAX, amax = INT32_MIN;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    par[t] = padj[t] = el[t] = ac[t] = 0;
+    vis[t] = val[t] = false;
+    if (i < n) {
+      par[t] = P2[i];
+      el[t] = P0[i];
+      ac[t] = P1[i];
+      vis[t] = vis_s[i] != 0;
+      val[t] = val_s[i] != 0;
+      // the head (node 0) is nobody's child: bucket it with the padding
+      padj[t] = (val[t] && i != 0) ? par[t] : n;
+      pa[i] = padj[t];
+      pmin = min(pmin, padj[t]);
+      pmax = max(pmax, padj[t]);
+      emin = min(emin, el[t]);
+      emax = max(emax, el[t]);
+      amin = min(amin, ac[t]);
+      amax = max(amax, ac[t]);
+    }
+  }
+  pmin = __reduce_min_sync(kFull, pmin);
+  pmax = __reduce_max_sync(kFull, pmax);
+  emin = __reduce_min_sync(kFull, emin);
+  emax = __reduce_max_sync(kFull, emax);
+  amin = __reduce_min_sync(kFull, amin);
+  amax = __reduce_max_sync(kFull, amax);
+
+  // ---- 0. child sort: slot = number of nodes that sort before ----
+  // The row's key packs order-preservingly into parent_adj << (be + ba) |
+  // (emax - elem) << ba | (amax - actor), where be and ba are the bits
+  // of the elem and actor spans: into a u32 when that needs at most 31
+  // bits (the main path's rows), a u64 up to 63, else the full key.
+  const int ba = 32 - __clz(static_cast<uint32_t>(amax) -
+                            static_cast<uint32_t>(amin));
+  const int be = 32 - __clz(static_cast<uint32_t>(emax) -
+                            static_cast<uint32_t>(emin));
+  const int bits = pmin < 0 ? 64 : 32 - __clz(pmax) + be + ba;
+  int slot[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) slot[t] = 0;
+  if (bits <= 31) {
+    uint32_t key[C];
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = 32 * t + lane;
+      key[t] = pack_key<uint32_t>(padj[t], el[t], ac[t], emax, amax, be, ba);
+      if (i < n) reinterpret_cast<uint32_t*>(khi)[i] = key[t];
+    }
+    __syncwarp();
+    rank_packed<C>(reinterpret_cast<const uint32_t*>(khi), n, lane, key,
+                   slot);
+  } else if (bits <= 63) {
+    uint64_t key[C];
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = 32 * t + lane;
+      key[t] = pack_key<uint64_t>(padj[t], el[t], ac[t], emax, amax, be, ba);
+      if (i < n) khi[i] = key[t];
+    }
+    __syncwarp();
+    rank_packed<C>(static_cast<const uint64_t*>(khi), n, lane, key, slot);
+  } else {
+    uint64_t hi[C], lo[C];
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = 32 * t + lane;
+      hi[t] = key_hi(padj[t], el[t]);
+      lo[t] = key_lo(ac[t], i);
+      if (i < n) {
+        khi[i] = hi[t];
+        klo[i] = lo[t];
+      }
+    }
+    __syncwarp();
+    rank_full<C>(khi, klo, n, hi, lo, slot);
+  }
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    if (i < n) ord[slot[t]] = i;
+  }
+  for (int i = lane; i < W; i += 32) P0[i] = -1;     // first_child
+  __syncwarp();
+
+  // ---- 1. thread the tree: P0 = first_child, P1 = next_sibling ----
+  int ns[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    ns[t] = -1;
+    if (i < n) {
+      const int p = padj[t];
+      const int s = slot[t];
+      const bool start = s == 0 || pa[ord[s - 1]] != p;
+      if (start && p >= 0 && p < n) P0[p] = i;
+      if (i != 0 && s + 1 < n) {   // head and padding share a bucket
+        const int o2 = ord[s + 1];
+        if (pa[o2] == p) ns[t] = o2;
+      }
+      P1[i] = ns[t];
+    }
+  }
+
+  // ---- 2. climb to the nearest ancestor-or-self with a sibling ----
+  int c[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    c[t] = 0;
+    if (i < n) {
+      c[t] = (ns[t] >= 0 || i == 0) ? i : min(max(par[t], 0), n - 1);
+      P2[i] = c[t];
+    }
+  }
+  __syncwarp();
+  int32_t* cc = P2;
+  int32_t* cn = P3;
+  for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = 32 * t + lane;
+      if (i < n) {
+        c[t] = cc[c[t]];
+        cn[i] = c[t];
+      }
+    }
+    __syncwarp();
+    int32_t* tmp = cc;
+    cc = cn;
+    cn = tmp;
+  }
+  // successor chain: nxt = succ or n
+  int nx[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    nx[t] = n;
+    if (i < n && val[t]) {
+      const int fc = P0[i];
+      const int succ = fc >= 0 ? fc : P1[c[t]];
+      nx[t] = succ >= 0 ? succ : n;
+    }
+  }
+  __syncwarp();           // every plane is free from here
+
+  // ---- 3. list-rank the chain: dist in P0/P1, nxt in P2/P3 ----
+  int32_t* dc = P0;
+  int32_t* dn = P1;
+  int32_t* xc = P2;
+  int32_t* xn = P3;
+  int d[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    d[t] = 1;
+    if (i < n) {
+      dc[i] = 1;
+      xc[i] = nx[t];
+    }
+  }
+  if (lane == 0) {        // the terminator slot never changes
+    dc[n] = dn[n] = 0;
+    xc[n] = xn[n] = n;
+  }
+  __syncwarp();
+  for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = 32 * t + lane;
+      if (i < n) {
+        const int j = nx[t];
+        const int dj = dc[j];
+        const int xj = xc[j];
+        d[t] += dj;
+        nx[t] = xj;
+        dn[i] = d[t];
+        xn[i] = xj;
+      }
+    }
+    __syncwarp();
+    int32_t* tmp = dc;
+    dc = dn;
+    dn = tmp;
+    tmp = xc;
+    xc = xn;
+    xn = tmp;
+  }
+  const int d0 = __shfl_sync(kFull, d[0], 0);   // node 0 is lane 0's
+  int tp[C];
+  bool shown[C];
+  bool off_chain = false;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    tp[t] = d0 - d[t];
+    shown[t] = false;
+    if (i < n) {
+      tree_pos[off + i] = tp[t];
+      const bool on = val[t] && tp[t] > 0;
+      shown[t] = on && vis[t];
+      off_chain |= !on;
+    }
+  }
+  off_chain = __any_sync(kFull, off_chain);
+
+  // ---- 4. node_at_pos in P0, shown flags in P1, ranks in P2 ----
+  int32_t* nap = P0;
+  int32_t* sh = P1;
+  int32_t* vr = P2;
+  for (int p = lane; p < W; p += 32) {
+    nap[p] = (p == 0 && off_chain) ? 0 : n - 1;
+  }
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    if (i < n) sh[i] = shown[t];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    if (i < n && val[t] && tp[t] > 0 && tp[t] <= n) nap[tp[t]] = i;
+  }
+  __syncwarp();
+  // exclusive scan of shown[node_at_pos[p]] over positions p = 32t + lane
+  const unsigned below = (1u << lane) - 1u;
+  int carry = 0;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int p = 32 * t + lane;
+    bool v = false;
+    if (p < n) {
+      const int j = nap[p];
+      node_at_pos[off + p] = j;
+      v = sh[j] != 0;
+    }
+    const unsigned b = __ballot_sync(kFull, v);
+    if (p < n) vr[p] = carry + __popc(b & below);
+    carry += __popc(b);
+  }
+  __syncwarp();
+  int total = 0;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const int i = 32 * t + lane;
+    if (i < n) {
+      vis_index[off + i] = shown[t] ? vr[min(max(tp[t], 0), n - 1)] : -1;
+    }
+    total += __popc(__ballot_sync(kFull, shown[t]));
+  }
+  if (lane == 0) length[k] = total;
+}
+
+template <int C>
+int launch_narrow(const int32_t* parent, const int32_t* elem,
+                  const int32_t* actor, const uint8_t* visible,
+                  const uint8_t* valid, int32_t* tree_pos,
+                  int32_t* vis_index, int32_t* node_at_pos, int32_t* length,
+                  int K, int m, int rounds, cudaStream_t stream) {
+  const size_t wbytes = narrow_warp_bytes(m);
+  const int rows = static_cast<int>(
+      std::min<size_t>(kNarrowMaxRows, kSmemLimit / wbytes));
+  const size_t smem = wbytes * rows;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rga_narrow_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (K + rows - 1) / rows;
+  rga_narrow_kernel<C><<<grid, 32 * rows, smem, stream>>>(
+      parent, elem, actor, visible, valid, tree_pos, vis_index, node_at_pos,
+      length, K, m, rounds, static_cast<int>(wbytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Whether a launch at width m keeps its planes in shared memory; when it
@@ -270,4 +755,35 @@ extern "C" int rga_order_launch(const void* order, const void* parent_adj,
   if (m <= 256) return args(launch<256>);
   if (m <= 4096) return args(launch<512>);
   return args(launch<1024>);
+}
+
+// C entry point of the narrow variant (bound with ctypes): the raw planes
+// parent/elem/actor int32 [K, m] and visible/valid uint8 (bool) [K, m],
+// m <= 512; the same outputs as rga_order_launch. Returns the CUDA error
+// of the launch (0 on success).
+extern "C" int rga_narrow_launch(const void* parent, const void* elem,
+                                 const void* actor, const void* visible,
+                                 const void* valid, void* tree_pos,
+                                 void* vis_index, void* node_at_pos,
+                                 void* length, int K, int m, int rounds,
+                                 void* stream) {
+  if (K <= 0) return 0;
+  if (m < 1 || m > kNarrowMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto launcher) {
+    return launcher(static_cast<const int32_t*>(parent),
+                    static_cast<const int32_t*>(elem),
+                    static_cast<const int32_t*>(actor),
+                    static_cast<const uint8_t*>(visible),
+                    static_cast<const uint8_t*>(valid),
+                    static_cast<int32_t*>(tree_pos),
+                    static_cast<int32_t*>(vis_index),
+                    static_cast<int32_t*>(node_at_pos),
+                    static_cast<int32_t*>(length), K, m, rounds,
+                    static_cast<cudaStream_t>(stream));
+  };
+  if (m <= 32) return args(launch_narrow<1>);
+  if (m <= 64) return args(launch_narrow<2>);
+  if (m <= 128) return args(launch_narrow<4>);
+  if (m <= 256) return args(launch_narrow<8>);
+  return args(launch_narrow<16>);
 }

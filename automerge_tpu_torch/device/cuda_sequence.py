@@ -1,28 +1,28 @@
-"""RGA ordering on the card: the hand-written CUDA kernel
+"""RGA ordering on the card: the hand-written CUDA kernels
 (``csrc/rga_order.cu``) behind ``sequence._rga_order_batched``.
 
-The port of ``automerge_tpu/device/pallas_sequence.py``. The child
-sort (parent ascending, elem and actor descending) stays a PyTorch
-stable sort, as it stays in XLA outside the Pallas kernel; from the
-sorted permutation the kernel threads the insertion tree, climbs to
-each node's nearest ancestor with a sibling, list-ranks the successor
-chain and runs the visibility scan, one thread block per job row.
+The port of ``automerge_tpu/device/pallas_sequence.py``. The kernels
+replace ``_make_kernel`` / ``_rga_pallas_padded`` /
+``rga_order_batch_pallas`` (``pallas_sequence.py`` :63-208), whose
+one-hot MXU matmuls existed only because the TPU lacks a fast gather,
+and unlike the TPU kernel also emit ``tree_pos`` and ``node_at_pos``,
+which the general engine's rebuild writes back. Both are built with
+nvcc for ``sm_90a`` on first use into ``_build/`` and bound with
+ctypes; :func:`variant` says which one a width takes:
 
-Two implementations, bit-identical by construction:
+* :func:`rga_order_cuda` — the narrow variant, for rows up to
+  :data:`M_NARROW` nodes: one warp per job row, several rows to a CTA,
+  straight from the raw planes. The child sort (parent ascending, elem
+  and actor descending, stable) is a rank count inside the kernel; then
+  the threading, the ancestor climb, the list ranking and the
+  visibility scan, all in the warp's slice of shared memory. Its plain
+  version is ``sequence._rga_order_plain``.
+* :func:`order_from_sorted_cuda` — the wide variant, for wider rows:
+  one thread block per job row, from the permutation of a PyTorch
+  stable child sort (``sequence._child_sort``). Its plain version is
+  ``sequence._order_from_sorted_plain``.
 
-* ``sequence._order_from_sorted_plain`` — the plain PyTorch version
-  (batched gathers and scatters into sink slots). It is the
-  specification, the CPU path of ``sequence._order_from_sorted``, and
-  what ``chip_smoke.py`` holds the kernel against on the card.
-* :func:`order_from_sorted_cuda` — the CUDA kernel, built with nvcc for
-  ``sm_90a`` on first use into ``_build/`` and bound with ctypes. It
-  replaces ``_make_kernel`` / ``_rga_pallas_padded`` /
-  ``rga_order_batch_pallas`` (``pallas_sequence.py`` :63-208), whose
-  one-hot MXU matmuls existed only because the TPU lacks a fast
-  gather. Unlike the TPU kernel it also emits ``tree_pos`` and
-  ``node_at_pos``, which the general engine's rebuild writes back.
-
-``sequence._order_from_sorted`` launches the kernel for every CUDA
+``sequence._rga_order_batched`` launches one of them for every CUDA
 tensor (raising if the build or the launch fails — there is no
 fallback) and runs the plain version only for tensors on the CPU.
 """
@@ -35,30 +35,102 @@ from . import cuda_build
 
 _I32 = torch.int32
 
-# launches of the CUDA kernel since the last reset (one per launch, in
-# order_from_sorted_cuda only) — the proof that a run went through it
+# rows up to this many nodes take the narrow variant: on an H100 its step
+# beats the PyTorch sort + wide kernel at every width it takes, up to its
+# own limit of 512 nodes (a lane's 16 register slots; PERF.md)
+M_NARROW = 512
+
+# launches of the CUDA kernels since the last reset (one per launch, in
+# rga_order_cuda and order_from_sorted_cuda only) — the proof that a run
+# went through them
 launches = 0
+# the variant of the latest launch ('narrow', 'wide' or 'wide-global')
+last_variant = None
 
 # order, parent_adj, parent, visible, valid, tree_pos, vis_index,
 # node_at_pos, length, scratch, K, m, rounds, stream
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# parent, elem, actor, visible, valid, tree_pos, vis_index, node_at_pos,
+# length, K, m, rounds, stream
+_NARROW_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p]
 
 
 def reset_launches():
-    global launches
+    global launches, last_variant
     launches = 0
+    last_variant = None
 
 
 def uses_global_scratch(m):
-    """Whether a launch at width ``m`` works on a global-memory scratch
-    (its four planes of m+1 words exceed the shared-memory cap)."""
+    """Whether a wide launch at width ``m`` works on a global-memory
+    scratch (its four planes of m+1 words exceed the shared-memory
+    cap)."""
     fn = cuda_build.load('rga_order', 'rga_order_uses_smem', [ctypes.c_int])
     return not fn(m)
 
 
+def variant(m):
+    """The kernel variant ``sequence._rga_order_batched`` takes at width
+    ``m`` on the card: ``'narrow'`` up to :data:`M_NARROW` nodes, else
+    ``'wide'``, or ``'wide-global'`` past the shared-memory cap."""
+    if m <= M_NARROW:
+        return 'narrow'
+    return 'wide-global' if uses_global_scratch(m) else 'wide'
+
+
+def _outputs(K, m, dev):
+    return {'tree_pos': torch.empty((K, m), dtype=_I32, device=dev),
+            'vis_index': torch.empty((K, m), dtype=_I32, device=dev),
+            'node_at_pos': torch.empty((K, m), dtype=_I32, device=dev),
+            'length': torch.empty((K,), dtype=_I32, device=dev)}
+
+
+def rga_order_cuda(parent, elem, actor, visible, valid, rounds):
+    """Launch the narrow RGA kernel on contiguous CUDA [K, m] raw planes
+    (m <= :data:`M_NARROW`): int32 ``parent``, ``elem``, ``actor``
+    and bool ``visible``/``valid``. ``rounds`` is the doubling round
+    count. Returns the dict of ``sequence._rga_order_plain``: int32
+    ``tree_pos``, ``vis_index``, ``node_at_pos`` [K, m] and ``length``
+    [K].
+
+    Bound: per call the kernel must read ``K*m*14`` bytes and write
+    ``K*m*12 + K*4`` bytes; each row's chain of O(m log m) dependent
+    shared-memory steps (and its m^2/32 compares a lane for the sort)
+    sets the time at the main path's width."""
+    global launches, last_variant
+    K, m = parent.shape
+    dev = parent.device
+    if dev.type != 'cuda':
+        raise ValueError('rga_order_cuda needs CUDA tensors')
+    if not 1 <= m <= M_NARROW or rounds < 1:
+        raise ValueError(f'bad narrow RGA shape m={m} rounds={rounds}')
+    for t, name in ((parent, 'parent'), (elem, 'elem'), (actor, 'actor')):
+        cuda_build.check(t, name, _I32, (K, m), dev)
+    cuda_build.check(visible, 'visible', torch.bool, (K, m), dev)
+    cuda_build.check(valid, 'valid', torch.bool, (K, m), dev)
+    out = _outputs(K, m, dev)
+    if K == 0:                  # no job rows: nothing to launch
+        return out
+    fn = cuda_build.load('rga_order', 'rga_narrow_launch', _NARROW_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(parent.data_ptr(), elem.data_ptr(), actor.data_ptr(),
+                 visible.data_ptr(), valid.data_ptr(),
+                 out['tree_pos'].data_ptr(), out['vis_index'].data_ptr(),
+                 out['node_at_pos'].data_ptr(), out['length'].data_ptr(),
+                 K, m, rounds, stream)
+    if err != 0:
+        raise RuntimeError(f'rga_order narrow kernel launch failed: CUDA '
+                           f'error {err}')
+    launches += 1
+    last_variant = 'narrow'
+    return out
+
+
 def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
                            rounds):
-    """Launch the RGA kernel on contiguous CUDA [K, m] planes: int32
+    """Launch the wide RGA kernel on contiguous CUDA [K, m] planes: int32
     ``order`` (the stable child sort), ``parent_adj`` (head and padding
     at m) and ``parent``, bool ``visible``/``valid``. ``rounds`` is the
     doubling round count. Returns the plain version's dict of int32
@@ -69,7 +141,7 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
     ``K*m*12 + K*4`` bytes; its O(K*m*log m) pointer-doubling loads stay
     in shared memory up to m = 12,799 — memory- and launch-bound at the
     main path's widths."""
-    global launches
+    global launches, last_variant
     K, m = order.shape
     dev = order.device
     if dev.type != 'cuda':
@@ -81,10 +153,7 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
         cuda_build.check(t, name, _I32, (K, m), dev)
     cuda_build.check(visible, 'visible', torch.bool, (K, m), dev)
     cuda_build.check(valid, 'valid', torch.bool, (K, m), dev)
-    out = {'tree_pos': torch.empty((K, m), dtype=_I32, device=dev),
-           'vis_index': torch.empty((K, m), dtype=_I32, device=dev),
-           'node_at_pos': torch.empty((K, m), dtype=_I32, device=dev),
-           'length': torch.empty((K,), dtype=_I32, device=dev)}
+    out = _outputs(K, m, dev)
     if K == 0:                  # no job rows: nothing to launch
         return out
     fn = cuda_build.load('rga_order', 'rga_order_launch', _ARGTYPES)
@@ -102,4 +171,5 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
         raise RuntimeError(f'rga_order kernel launch failed: CUDA error '
                            f'{err}')
     launches += 1
+    last_variant = 'wide-global' if scratch is not None else 'wide'
     return out

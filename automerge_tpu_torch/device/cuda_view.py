@@ -22,9 +22,13 @@ Two implementations, bit-identical by construction:
   ``_make_edit_kernel`` / ``_edit_stream_pallas_core`` /
   ``edit_stream_pallas`` (``automerge_tpu/device/pallas_view.py``
   :145-258), whose one-hot MXU matmuls existed only because the TPU
-  lacks a fast gather: here one thread block per job row decodes the
-  vis planes and the touched bits itself, marks a presence grid, runs a
-  block-wide scan and scatters directly.
+  lacks a fast gather. Rows up to :data:`M_WARP_ES` nodes take one warp
+  each (several rows to a CTA): the warp decodes its row once into
+  registers, keeps each class's presence as a bitmask of ceil(m/32)
+  words in shared memory and ranks a node with a popcount prefix over
+  those words. Wider rows take one thread block each, with the same
+  bitmasks (in a global scratch of ``K * 6 * ceil(m/32)`` words past the
+  shared-memory cap). :func:`variant` says which a width takes.
 
 :func:`dispatch_edit_stream` launches the kernel for every CUDA tensor
 (raising if the build or the launch fails — there is no fallback) and
@@ -45,22 +49,47 @@ _W2_ELEM = 0x7FFF
 _W2_VIS_SHIFT = 30
 _W2_IDX_SHIFT = 15
 
+# rows up to this many nodes take the warp-per-row variant, wider rows
+# the block-per-row one (the crossover measured on an H100: PERF.md)
+M_WARP_ES = 512
+
 # launches of the CUDA kernel since the last reset (one per launch, in
 # edit_stream_cuda only) — the proof that a run went through the kernel
 launches = 0
+# the variant of the latest launch ('warp', 'block' or 'block-global')
+last_variant = None
 
-# input formats of the kernel's C entry point
+# input formats and variants of the kernel's C entry point
 _FMT_PACKED, _FMT_COLS = 0, 1
+_VARIANT_WARP, _VARIANT_BLOCK = 0, 1
 
-# fmt, 5 input planes, touched, 5 outputs, cnt, grid, K, m, mb, e_pad,
-# stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_void_p] * 8
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# variant, fmt, 5 input planes, touched, 5 outputs, cnt, scratch, K, m,
+# mb, e_pad, stream
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+             + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def reset_launches():
-    global launches
+    global launches, last_variant
     launches = 0
+    last_variant = None
+
+
+def variant(m, force=None):
+    """The kernel variant a launch at width ``m`` takes: ``'warp'`` (one
+    warp per row) up to :data:`M_WARP_ES` nodes, else ``'block'`` (one
+    thread block per row), ``'block-global'`` when the block's bitmasks
+    exceed the shared-memory cap. ``force`` ('warp' or 'block') overrides
+    the width bound."""
+    v = force or ('warp' if m <= M_WARP_ES else 'block')
+    if v not in ('warp', 'block'):
+        raise ValueError(f'unknown edit-stream variant {force!r}')
+    if v == 'block':
+        fn = cuda_build.load('edit_stream', 'edit_stream_block_uses_smem',
+                             [ctypes.c_int])
+        if not fn(m):
+            v = 'block-global'
+    return v
 
 
 def _unpack_touch(touched_u8, m):
@@ -135,19 +164,21 @@ def edit_stream_packed(vis_packed, touched_u8, *, e_pad):
     return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
 
 
-def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
+def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     """Launch the CUDA edit-stream kernel on one apply's vis planes:
     ``vis_fmt='packed'`` takes the int32 [K, m] vis word plane,
     ``'cols'`` the (prior_vis bool, visible bool, prior_idx int32,
     new_idx int32) [K, m] planes. ``touched_u8`` is the uint8
     [K, ceil(m/8)] packbits plane. Returns the same six int32 tensors as
     :func:`edit_stream_packed` / :func:`edit_stream`, on the card.
+    ``force`` picks a variant regardless of the width (see
+    :func:`variant`).
 
     Bound: per call the kernel must read ``K*m*4 + K*ceil(m/8)`` bytes
     (packed) and write ``5*K*e_pad*4 + 12*K`` bytes; it does O(K*m)
-    integer work, so it is bound by memory traffic and launch latency,
-    not arithmetic."""
-    global launches
+    integer work, so it is bound by memory traffic and latency, not
+    arithmetic."""
+    global launches, last_variant
     if vis_fmt == 'packed':
         v = planes
         K, m = v.shape
@@ -182,17 +213,23 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad):
     if K == 0:                  # no job rows: nothing to launch
         return (*outs, cnt)
     fn = cuda_build.load('edit_stream', 'edit_stream_launch', _ARGTYPES)
-    grid = torch.empty((K, m), dtype=_I32, device=dev)    # scan scratch
+    var = variant(m, force)
+    # the block variant's bitmasks past the shared-memory cap: 6 words
+    # per 32 nodes and row
+    scratch = torch.empty((K, 6 * ((m + 31) >> 5)), dtype=_I32, device=dev) \
+        if var == 'block-global' else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            fmt, *ptrs, touched_u8.data_ptr(),
-            *[o.data_ptr() for o in outs], cnt.data_ptr(),
-            grid.data_ptr(), K, m, mb, e_pad, stream)
+            _VARIANT_WARP if var == 'warp' else _VARIANT_BLOCK, fmt, *ptrs,
+            touched_u8.data_ptr(), *[o.data_ptr() for o in outs],
+            cnt.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            K, m, mb, e_pad, stream)
     if err != 0:
-        raise RuntimeError(f'edit_stream kernel launch failed: CUDA error '
-                           f'{err}')
+        raise RuntimeError(f'edit_stream kernel launch failed ({var} '
+                           f'variant): CUDA error {err}')
     launches += 1
+    last_variant = var
     return (*outs, cnt)
 
 

@@ -16,17 +16,19 @@ rounds:
 4. **Visibility scan**: a prefix sum over tombstone flags maps tree
    positions to user-visible list indexes.
 
-Step 1 is a PyTorch stable sort on every device (the JAX package keeps
-it in XLA outside its Pallas kernel too). Steps 2-4 are
-:func:`_order_from_sorted`: on CUDA tensors it launches the
-hand-written RGA kernel (:mod:`.cuda_sequence`, ``csrc/rga_order.cu``,
-the port of ``pallas_sequence.py``); on CPU tensors it runs
-:func:`_order_from_sorted_plain`, the kernel's plain version — direct
+On CPU tensors :func:`_rga_order_batched` runs the plain version
+:func:`_rga_order_plain`: a PyTorch stable sort per key
+(:func:`_child_sort`), then :func:`_order_from_sorted_plain` — direct
 batched ``torch.gather`` pointer doubling, integer-exact and the same
 values as every JAX variant (the JAX package routes small trees
 through one-hot MXU matmuls because the TPU has no fast gather).
 Scatters the reference drops land in a sink column that is sliced off,
-and every output is int32.
+and every output is int32. On CUDA tensors it launches a hand-written
+RGA kernel (:mod:`.cuda_sequence`, ``csrc/rga_order.cu``, the port of
+``pallas_sequence.py``): rows up to ``cuda_sequence.M_NARROW`` nodes
+take the narrow kernel, which does all four steps, the sort included,
+from the raw planes; wider rows take the PyTorch sort and then the wide
+kernel for steps 2-4.
 
 Node 0 is the virtual ``'_head'`` element; padding slots carry
 ``valid=False`` and sort to the end. The delta orderer behind the
@@ -128,7 +130,7 @@ def _order_from_sorted_plain(order, parent_adj, parent, visible, valid):
     """Steps 2-4 of the RGA order over [K, n] planes, from the stable
     child sort ``order`` and the sort key ``parent_adj`` (head and
     padding bucketed at n): thread + list-rank (`_thread_and_rank`),
-    then the visibility scan. The plain version of the CUDA kernel.
+    then the visibility scan. The plain version of the wide CUDA kernel.
     Returns the dict of `_rga_order_batched`."""
     K, n = parent.shape
     dev = parent.device
@@ -165,21 +167,6 @@ def _order_from_sorted_plain(order, parent_adj, parent, visible, valid):
             'node_at_pos': node_at_pos.to(_I32), 'length': length}
 
 
-def _order_from_sorted(order, parent_adj, parent, visible, valid):
-    """Steps 2-4 of the RGA order: CUDA planes always go through the
-    hand-written kernel (inputs cast to its int32/bool, contiguous; a
-    build or launch failure raises), CPU planes take the plain
-    version."""
-    if parent.device.type == 'cuda':
-        return cuda_sequence.order_from_sorted_cuda(
-            *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
-            visible.to(torch.bool).contiguous(),
-            valid.to(torch.bool).contiguous(),
-            rounds=_ceil_log2(parent.shape[1]) + 1)
-    return _order_from_sorted_plain(order, parent_adj, parent, visible,
-                                    valid)
-
-
 def _child_sort(parent, elem, actor, valid):
     """Step 1 over [K, n] planes: the stable sort of the children into
     (parent asc, elem desc, actor desc). Returns int64 ``(order,
@@ -198,13 +185,40 @@ def _child_sort(parent, elem, actor, valid):
     return order, parent_adj, parent
 
 
+def _rga_order_plain(parent, elem, actor, visible, valid):
+    """The plain RGA order over [K, m] job planes: the child sort, then
+    steps 2-4. The plain version of the narrow CUDA kernel, and the CPU
+    path of `_rga_order_batched`."""
+    order, parent_adj, parent64 = _child_sort(parent, elem, actor, valid)
+    return _order_from_sorted_plain(order, parent_adj, parent64, visible,
+                                    valid)
+
+
 def _rga_order_batched(parent, elem, actor, visible, valid):
     """Batched RGA over [K, m] job planes (parent/elem/actor int32,
     visible/valid bool). Returns {'tree_pos', 'vis_index',
     'node_at_pos': int32[K, m], 'length': int32[K]} — equal to the JAX
-    `_rga_order_batched` on every row (tree_pos on valid rows)."""
+    `_rga_order_batched` on every row (tree_pos on valid rows).
+
+    CUDA planes always go through a kernel (inputs cast to its
+    int32/bool, contiguous; a build or launch failure raises): the
+    narrow one straight from these planes up to
+    ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort and
+    the wide one. CPU planes take `_rga_order_plain`."""
+    if parent.device.type != 'cuda':
+        return _rga_order_plain(parent, elem, actor, visible, valid)
+    m = parent.shape[1]
+    rounds = _ceil_log2(m) + 1
+    flags = (visible.to(torch.bool).contiguous(),
+             valid.to(torch.bool).contiguous())
+    if m <= cuda_sequence.M_NARROW:
+        return cuda_sequence.rga_order_cuda(
+            *(t.to(_I32).contiguous() for t in (parent, elem, actor)),
+            *flags, rounds=rounds)
     order, parent_adj, parent = _child_sort(parent, elem, actor, valid)
-    return _order_from_sorted(order, parent_adj, parent, visible, valid)
+    return cuda_sequence.order_from_sorted_cuda(
+        *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
+        *flags, rounds=rounds)
 
 
 def _rga_order(parent, elem, actor, visible, valid):

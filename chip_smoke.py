@@ -12,10 +12,15 @@ exits non-zero without a result line):
 2. build: the three CUDA kernels (one nvcc per source, sm_90a, all
    started together) and the native host libraries (g++), each timed;
 3. kernels vs plain versions, bit-equal: the edit stream on seeded
-   planes (both input formats, several (K, m, e_pad) shapes including
-   the e_pad drop path); the RGA order on seeded trees at (K, m) up to
-   (12288, 64), (64, 4096) and (2, 40000), the last on the kernel's
-   global-memory variant; the flat-map resolve on
+   planes (both input formats, its warp and block variants, (K, m,
+   e_pad) shapes from m = 8 to 32,767 on both sides of ``M_WARP_ES``,
+   e_pad = 1, e_pad = m and the e_pad drop path); the RGA order on
+   seeded random, prepend, chain and wide-key trees at (K, m) up to
+   (12288, 64),
+   both sides of ``M_NARROW``, (64, 4096) and (2, 40000) — through the
+   dispatch (narrow kernel, or sort + wide kernel, the last shape on
+   its global-memory variant) and, up to m = 512, both kernels
+   directly; the flat-map resolve on
    ``gen_docset_workload(cross_clock=True)`` batches up to the flagship
    10,240 docs x 128 ops x 8 actors;
 4. the general engine's tick: a 10,240-document collab-server fleet
@@ -36,14 +41,19 @@ exits non-zero without a result line):
 6. one more general tick under ``torch.profiler``: device busy time
    against the tick's wall time (the idle share) and the kernels that
    take it;
-7. timings of each kernel at its main-path shapes (CUDA events) beside
-   its bound, its plain version and the card name/power limit; the JSON
-   kernel line; then the result line.
+7. every main-path input (raw planes as the paths hand them over)
+   through each kernel against its plain version, and the variant each
+   path ran; timings at the main path's shapes: each kernel's device
+   time (50 launches captured in a CUDA graph, median, min and max of 5
+   replays), the edit-stream call and the whole RGA step as a caller
+   pays them (eager, 5 x 50 calls), beside the bound, the plain version
+   and the card's name and power limit; the JSON kernel line (with each
+   kernel's variant); then the result line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after it. The workload generators (``gen_mixed_docs``,
-``gen_tick2``, ``random_planes``, ``random_trees``) are shared with the
-tests.
+``gen_tick2``, ``random_planes``, ``random_trees``, ``prepend_trees``,
+``chain_trees``, ``wide_key_trees``) are shared with the tests.
 """
 
 import json
@@ -184,6 +194,65 @@ def random_trees(rng, K, m):
     return parent, elem, actor, visible, valid
 
 
+def _tree_rows(rng, K, m, parent_of):
+    """[K, m] RGA job planes of :func:`random_trees`' row layout (row 0
+    full, the last row all padding when K > 2, the rest ragged) whose
+    valid nodes take their parents from ``parent_of(nk)`` and their
+    Lamport counters and actors in pairs, so that (elem, actor) ties
+    fall to the node index."""
+    parent = np.zeros((K, m), np.int32)
+    elem = np.zeros((K, m), np.int32)
+    actor = np.zeros((K, m), np.int32)
+    visible = np.zeros((K, m), bool)
+    valid = np.zeros((K, m), bool)
+    n = rng.integers(1, m + 1, K)
+    n[0] = m
+    if K > 2:
+        n[-1] = 0
+    for k in range(K):
+        nk = int(n[k])
+        valid[k, :nk] = True
+        if nk < 2:
+            continue
+        parent[k, 1:nk] = parent_of(nk)
+        elem[k, 1:nk] = np.arange(2, nk + 1) // 2
+        actor[k, 1:nk] = rng.integers(0, 2, nk - 1)
+        visible[k, 1:nk] = rng.random(nk - 1) < 0.7
+    return parent, elem, actor, visible, valid
+
+
+def prepend_trees(rng, K, m):
+    """Seeded job planes in which every node is a child of the head, as
+    a list built by prepending: the narrow RGA kernel's worst case (one
+    sort bucket of m-1 siblings)."""
+    return _tree_rows(rng, K, m, lambda nk: np.zeros(nk - 1, np.int32))
+
+
+def chain_trees(rng, K, m):
+    """Seeded job planes holding pure typing chains (node i's parent is
+    node i-1), with (elem, actor) ties and padding rows."""
+    return _tree_rows(rng, K, m, lambda nk: np.arange(nk - 1, dtype=np.int32))
+
+
+def wide_key_trees(rng, K, m):
+    """:func:`random_trees` with Lamport counters drawn over the whole
+    int32 range (its ends included), and actor ranks too on even rows:
+    child-sort keys that need more than 32 bits (odd rows: the narrow RGA
+    kernel's 64-bit key) or more than 64 (even rows: its 128-bit
+    compare)."""
+    parent, elem, actor, visible, valid = random_trees(rng, K, m)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    elem = rng.integers(lo, hi, (K, m), endpoint=True).astype(np.int32)
+    elem[:, -1] = lo
+    actor[::2] = rng.integers(lo, hi, actor[::2].shape, endpoint=True)
+    actor[::2, -1] = hi
+    return parent, elem, actor, visible, valid
+
+
+TREES = {'random': random_trees, 'prepend': prepend_trees,
+         'chain': chain_trees}
+
+
 def _card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -192,19 +261,49 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters=50, warmup=5):
+def _time_samples(fn, iters=50, reps=5, warmup=5, graph=False):
+    """``reps`` CUDA-event timings of ``iters`` back-to-back calls of
+    ``fn`` (after ``warmup`` calls), in ms per call. With ``graph`` the
+    ``iters`` calls are captured once into a CUDA graph and each timing
+    replays it: the device's time alone, without the host's launch
+    overhead."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode='relaxed'):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        if g is not None:
+            g.replay()
+        else:
+            for _ in range(iters):
+                fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1) / iters)
+    return out
+
+
+def _time_ms(fn, iters=50, reps=5, graph=False):
+    """(median, min, max) ms per call over ``reps`` timings of ``iters``
+    calls (see :func:`_time_samples`)."""
+    t = _time_samples(fn, iters, reps, graph=graph)
+    return float(np.median(t)), min(t), max(t)
+
+
+def _fmt_t(t):
+    return f'{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})'
 
 
 def _max_abs_err(got, want, where):
@@ -290,30 +389,44 @@ def _bits_err(got, want, where, mask=None):
 
 
 def _check_rga_kernel(dev):
-    """Phase 3b: the RGA kernel against its plain version on seeded
-    trees (the last shape takes the global-memory variant)."""
+    """Phase 3b: the RGA kernels against their plain versions on seeded
+    random, prepend, chain and wide-key trees (the last on the narrow
+    kernel's 64-bit and 128-bit key paths), through the dispatch (narrow
+    up to ``M_NARROW``, wide above, the last shape on the wide variant's
+    global memory) and, up to ``M_NARROW``, both variants directly."""
     import torch
     from automerge_tpu_torch.device import cuda_sequence, sequence
-    rng = np.random.default_rng(4321)
-    for K, m in ((1, 2), (6, 16), (37, 200), (12288, 64), (64, 4096),
-                 (2, 40000)):
-        planes = [torch.as_tensor(p).to(dev) for p in random_trees(rng, K, m)]
-        order, padj, parent = sequence._child_sort(planes[0], planes[1],
-                                                   planes[2], planes[4])
-        want = sequence._order_from_sorted_plain(order, padj, parent,
-                                                 planes[3], planes[4])
-        got = cuda_sequence.order_from_sorted_cuda(
-            order.to(torch.int32), padj.to(torch.int32),
-            parent.to(torch.int32), planes[3], planes[4],
-            rounds=sequence._ceil_log2(m) + 1)
-        torch.cuda.synchronize()
-        if _bits_err(got, want, f'rga {(K, m)}', mask=planes[4]):
-            raise AssertionError(f'rga kernel != plain at {(K, m)}')
-        glob = cuda_sequence.uses_global_scratch(m)
-        if glob != (m == 40000):
-            raise AssertionError(f'rga at m={m}: global scratch {glob}')
-        print(f'kernel: rga_order (K={K}, m={m}) bit-equal to the plain '
-              f'version (global-memory variant: {glob})', flush=True)
+    n = cuda_sequence.M_NARROW
+    for tree, gen in (*TREES.items(), ('wide-key', wide_key_trees)):
+        rng = np.random.default_rng(4321)
+        for K, m in ((1, 2), (6, 16), (37, 200), (12288, 64), (300, n),
+                     (300, n + 1), (64, 4096), (2, 40000)):
+            planes = [torch.as_tensor(p).to(dev) for p in gen(rng, K, m)]
+            want = sequence._rga_order_plain(*planes)
+            got = {'dispatch': sequence._rga_order_batched(*planes)}
+            ran = cuda_sequence.last_variant
+            if ran != cuda_sequence.variant(m) or \
+                    (ran == 'wide-global') != (m == 40000):
+                raise AssertionError(f'rga {tree} at m={m}: ran {ran}')
+            rounds = sequence._ceil_log2(m) + 1
+            if m <= cuda_sequence.M_NARROW:
+                got['narrow'] = cuda_sequence.rga_order_cuda(
+                    *(t.to(torch.int32) for t in planes[:3]), planes[3],
+                    planes[4], rounds=rounds)
+                order, padj, parent = sequence._child_sort(
+                    planes[0], planes[1], planes[2], planes[4])
+                got['wide'] = cuda_sequence.order_from_sorted_cuda(
+                    order.to(torch.int32), padj.to(torch.int32),
+                    parent.to(torch.int32), planes[3], planes[4],
+                    rounds=rounds)
+            torch.cuda.synchronize()
+            for how, out in got.items():
+                if _bits_err(out, want, f'rga {(K, m)}', mask=planes[4]):
+                    raise AssertionError(f'rga {how} kernel != plain on '
+                                         f'{tree} trees at {(K, m)}')
+            print(f'kernel: rga_order {tree} trees (K={K}, m={m}) '
+                  f'bit-equal to the plain version: {", ".join(got)} '
+                  f'(dispatch ran {ran})', flush=True)
 
 
 def _check_flatmap_kernel(dev):
@@ -380,14 +493,16 @@ def _device_doc_set_path(card, n_docs, list_ops):
             return out
         return run
 
-    # the kernel inputs the path hands the kernels, for the timings
+    # the kernel inputs the path hands the kernels, for the timings (the
+    # RGA order's raw planes, as the backend hands them to
+    # _rga_order_batched)
     captured = {}
-    real_rga = cuda_sequence.order_from_sorted_cuda
+    real_rga = DB._rga_order_batched
     real_fm = cuda_merge.resolve_cuda
 
-    def cap_rga(*a, **kw):
-        captured['rga'] = (a, kw)
-        return real_rga(*a, **kw)
+    def cap_rga(*a):
+        captured['rga'] = a
+        return real_rga(*a)
 
     def cap_fm(*a, **kw):
         captured['flatmap'] = (a, kw)
@@ -397,7 +512,7 @@ def _device_doc_set_path(card, n_docs, list_ops):
     counts = {}
     for name, fn in originals.items():
         setattr(DB, name, timed(name, fn, name in dev_fns))
-    cuda_sequence.order_from_sorted_cuda = cap_rga
+    DB._rga_order_batched = cap_rga
     cuda_merge.resolve_cuda = cap_fm
     try:
         _reset_counts(cuda_view, cuda_sequence, cuda_merge)
@@ -428,11 +543,12 @@ def _device_doc_set_path(card, n_docs, list_ops):
                   flush=True)
         counts = {'flatmap_resolve': cuda_merge.launches,
                   'rga_order': cuda_sequence.launches,
-                  'edit_stream': cuda_view.launches}
+                  'edit_stream': cuda_view.launches,
+                  'rga_variant': cuda_sequence.last_variant}
     finally:
         for name, fn in originals.items():
             setattr(DB, name, fn)
-        cuda_sequence.order_from_sorted_cuda = real_rga
+        DB._rga_order_batched = real_rga
         cuda_merge.resolve_cuda = real_fm
 
     # the same batches on the CPU (seeded subset, a doc set of its own)
@@ -504,29 +620,37 @@ def main():
     # kernels compute integer ranks, maxima and copies, so any
     # difference is a fault) ----
     rng = np.random.default_rng(1234)
-    for K, m, e_pad in ((1, 8, 8), (5, 64, 8), (37, 200, 24),
-                        (10240, 64, 64), (64, 4096, 512)):
+    w = cuda_view.M_WARP_ES
+    for K, m, e_pad in ((1, 8, 8), (5, 64, 8), (4, 33, 1), (4, 33, 33),
+                        (37, 200, 24), (10240, 64, 64), (64, w, 128),
+                        (64, w + 1, 128), (64, 4096, 512), (9, 32767, 64)):
         pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
         t_u8 = torch.as_tensor(tb).to(dev)
         v = torch.as_tensor(packed).to(dev)
         cols = (torch.as_tensor(pv).to(dev), torch.as_tensor(nv).to(dev),
                 torch.as_tensor(pi).to(dev), torch.as_tensor(ni).to(dev))
         want = cuda_view.edit_stream_packed(v, t_u8, e_pad=e_pad)
-        got = cuda_view.edit_stream_cuda('packed', v, t_u8, e_pad)
-        torch.cuda.synchronize()
-        if _max_abs_err(got, want, 'packed'):
-            raise AssertionError(f'packed kernel != plain at {(K, m, e_pad)}')
         want_c = cuda_view.edit_stream(*cols, t_u8, e_pad=e_pad)
-        got_c = cuda_view.edit_stream_cuda('cols', cols, t_u8, e_pad)
-        torch.cuda.synchronize()
-        if _max_abs_err(got_c, want_c, 'cols'):
-            raise AssertionError(f'cols kernel != plain at {(K, m, e_pad)}')
         if _max_abs_err(want, want_c, 'plain'):
             raise AssertionError(f'packed plain != cols plain at '
                                  f'{(K, m, e_pad)}')
+        picked = cuda_view.variant(m)
+        for force in (None, 'warp', 'block'):
+            for fmt, planes in (('packed', v), ('cols', cols)):
+                got = cuda_view.edit_stream_cuda(fmt, planes, t_u8, e_pad,
+                                                 force=force)
+                torch.cuda.synchronize()
+                if force is None and cuda_view.last_variant != picked:
+                    raise AssertionError(f'edit stream at m={m} ran '
+                                         f'{cuda_view.last_variant}')
+                if _max_abs_err(got, want, fmt):
+                    raise AssertionError(
+                        f'{fmt} kernel ({cuda_view.last_variant}) != plain '
+                        f'at {(K, m, e_pad)}')
         drops = bool((want[5] > e_pad).any())
-        print(f'kernel: (K={K}, m={m}, e_pad={e_pad}) packed+cols '
-              f'bit-equal to the plain version (drop path hit: {drops})',
+        print(f'kernel: edit_stream (K={K}, m={m}, e_pad={e_pad}) packed+'
+              f'cols, warp and block variants, bit-equal to the plain '
+              f'version (dispatch picks {picked}; drop path hit: {drops})',
               flush=True)
     _check_rga_kernel(dev)
     _check_flatmap_kernel(dev)
@@ -543,17 +667,19 @@ def main():
 
     # the edit-stream and RGA inputs the main path hands the kernels,
     # kept for the kernel-vs-plain check and the timing at those shapes
+    # (the RGA order's raw planes, as the engine hands them to
+    # sequence._rga_order_batched)
     es_inputs, rga_inputs = [], []
     real_dispatch = cuda_view.dispatch_edit_stream
-    real_rga = cuda_sequence.order_from_sorted_cuda
+    real_rga = sequence._rga_order_batched
 
     def capture(vis_fmt, planes, touched_u8, e_pad):
         es_inputs.append((vis_fmt, planes, np.array(touched_u8), e_pad))
         return real_dispatch(vis_fmt, planes, touched_u8, e_pad)
 
-    def capture_rga(*a, **kw):
-        rga_inputs.append((a, kw))
-        return real_rga(*a, **kw)
+    def capture_rga(*a):
+        rga_inputs.append(a)
+        return real_rga(*a)
 
     # seeded documents whose diffs and views are checked against the CPU
     sub = np.sort(np.random.default_rng(7).choice(n_docs, 768,
@@ -588,7 +714,7 @@ def main():
     gds = GeneralDocSet(n_docs, device='cuda')
     diffs_gpu = []
     cuda_view.dispatch_edit_stream = capture
-    cuda_sequence.order_from_sorted_cuda = capture_rga
+    sequence._rga_order_batched = capture_rga
     _reset_counts(cuda_view, cuda_sequence, cuda_merge)
     try:
         for k, batch in enumerate(ticks):
@@ -618,9 +744,11 @@ def main():
         t_mat = (time.perf_counter() - t0) * 1e3
     finally:
         cuda_view.dispatch_edit_stream = real_dispatch
-        cuda_sequence.order_from_sorted_cuda = real_rga
+        sequence._rga_order_batched = real_rga
     launches_main = cuda_view.launches
     rga_main = cuda_sequence.launches
+    ran = {'edit_stream': cuda_view.last_variant,
+           'rga_order': cuda_sequence.last_variant}
     native_batches = metrics.counters.get('general_stage_native_batches', 0)
     variants = {k: v for k, v in metrics.counters.items()
                 if k.startswith('general_variant_')}
@@ -680,70 +808,110 @@ def main():
         want = cuda_view.edit_stream_packed(planes, t_u8, e_pad=e_pad)
         torch.cuda.synchronize()
         max_abs = max(max_abs, _max_abs_err(got, want, 'main path'))
+        if cuda_view.last_variant != cuda_view.variant(planes.shape[1]):
+            raise AssertionError(f'edit stream ran {cuda_view.last_variant}'
+                                 f' at a main-path shape')
     if max_abs:
         raise AssertionError(f'kernel != plain at a main-path shape '
                              f'(max |diff| {max_abs})')
+    if ran['edit_stream'] != cuda_view.variant(planes.shape[1]):
+        raise AssertionError(f'the main path ran the {ran["edit_stream"]} '
+                             f'edit-stream variant')
     K2, m2 = planes.shape
-    ms = _time_ms(lambda: cuda_view.edit_stream_cuda(
+    es_t = _time_ms(lambda: cuda_view.edit_stream_cuda(
+        vis_fmt, planes, t_u8, e_pad), graph=True)
+    es_eager = _time_ms(lambda: cuda_view.edit_stream_cuda(
         vis_fmt, planes, t_u8, e_pad))
-    plain_ms = _time_ms(lambda: cuda_view.edit_stream_packed(
+    plain_t = _time_ms(lambda: cuda_view.edit_stream_packed(
         planes, t_u8, e_pad=e_pad), iters=20)
     bytes_moved = K2 * m2 * 4 + K2 * tb.shape[1] + 5 * K2 * e_pad * 4 + \
         12 * K2
     bound_ms = bytes_moved / _HBM_BYTES_PER_S * 1e3
     print(f'edit-stream kernel ({card}): tick-2 shape K={K2} m={m2} '
-          f'e_pad={e_pad}: {ms:.4f} ms/launch, plain PyTorch '
-          f'{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} '
-          f'bytes at 3.35 TB/s), max |kernel - plain| {max_abs}',
-          flush=True)
+          f'e_pad={e_pad}, {ran["edit_stream"]} variant: {_fmt_t(es_t)} per '
+          f'launch on the device (a CUDA graph of 50 launches, median of 5 '
+          f'replays), {_fmt_t(es_eager)} called eagerly; plain PyTorch '
+          f'{_fmt_t(plain_t)}; bound {bound_ms:.5f} ms ({bytes_moved} bytes '
+          f'at 3.35 TB/s); max |kernel - plain| {max_abs}', flush=True)
     kernels.append({
         'name': 'edit_stream', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/edit_stream.cu',
         'replaces': 'automerge_tpu/device/pallas_view.py:233',
         'launches': launches_main + dds_counts['edit_stream'],
-        'max_abs_err': max_abs, 'ms': ms, 'plain_ms': plain_ms,
-        'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': None})
+        'max_abs_err': max_abs, 'ms': es_t[0], 'plain_ms': plain_t[0],
+        'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': None,
+        'variant': ran['edit_stream']})
 
     # RGA order: every main-path input (both ticks and the device doc
-    # set's list batch) held against the plain version; timed at the
-    # device doc set's list batch and at the general tick 2
+    # set's list batch, raw planes) through the dispatch against the
+    # plain version; timed at the general tick 2 and the list batch —
+    # the kernel alone, the whole step as the path pays it, and the
+    # PyTorch sort + wide kernel step beside it
     rga_timed = (('general tick 2', rga_inputs[-1]),
                  ('device doc set list batch', dds_inputs['rga']))
     rga_inputs.append(dds_inputs['rga'])
     rga_err = 0
-    for a, kw in rga_inputs:
-        got = cuda_sequence.order_from_sorted_cuda(*a, **kw)
-        want = sequence._order_from_sorted_plain(*a[:5])
+    for a in rga_inputs:
+        got = sequence._rga_order_batched(*a)
+        want = sequence._rga_order_plain(*a)
         torch.cuda.synchronize()
         rga_err = max(rga_err, _bits_err(got, want, 'rga main path',
-                                         mask=a[4]))
+                                         mask=a[4].to(torch.bool)))
+        if cuda_sequence.last_variant != cuda_sequence.variant(a[0].shape[1]):
+            raise AssertionError(f'rga ran {cuda_sequence.last_variant} at '
+                                 f'a main-path shape')
     if rga_err:
         raise AssertionError(f'rga kernel != plain at a main-path shape '
                              f'(max |diff| {rga_err})')
+    for path in ('rga_order', 'rga_variant'):
+        v = ran['rga_order'] if path == 'rga_order' else \
+            dds_counts['rga_variant']
+        if v != cuda_sequence.variant(rga_inputs[0][0].shape[1]):
+            raise AssertionError(f'a main path ran the {v} RGA variant')
     rga_times = []
-    for label, (a, kw) in rga_timed:
+    for label, a in rga_timed:
         Kr, mr = a[0].shape
-        r_ms = _time_ms(lambda: cuda_sequence.order_from_sorted_cuda(*a,
-                                                                     **kw))
-        r_plain = _time_ms(lambda: sequence._order_from_sorted_plain(*a[:5]),
-                           iters=20)
-        # inputs: order, parent_adj, parent int32 + visible, valid bool;
+        rounds = sequence._ceil_log2(mr) + 1
+        raw = [t.to(torch.int32).contiguous() for t in a[:3]] + \
+            [t.to(torch.bool).contiguous() for t in a[3:]]
+        srt = [t.to(torch.int32).contiguous()
+               for t in sequence._child_sort(a[0], a[1], a[2], a[4])]
+        r_kernel = _time_ms(lambda: cuda_sequence.rga_order_cuda(
+            *raw, rounds=rounds), graph=True)
+        r_step = _time_ms(lambda: sequence._rga_order_batched(*a))
+        r_wide = _time_ms(lambda: cuda_sequence.order_from_sorted_cuda(
+            *srt, *raw[3:], rounds=rounds), graph=True)
+
+        def sort_wide():
+            o, p, q = sequence._child_sort(a[0], a[1], a[2], a[4])
+            return cuda_sequence.order_from_sorted_cuda(
+                o.to(torch.int32), p.to(torch.int32), q.to(torch.int32),
+                *raw[3:], rounds=rounds)
+        r_sort_wide = _time_ms(sort_wide)
+        r_plain = _time_ms(lambda: sequence._rga_order_plain(*a), iters=20)
+        # inputs: parent, elem, actor int32 + visible, valid bool;
         # outputs: three int32 planes + int32 length
         r_bytes = Kr * mr * (4 * 3 + 2) + Kr * mr * 12 + Kr * 4
         r_bound = r_bytes / _HBM_BYTES_PER_S * 1e3
-        rga_times.append((r_ms, r_plain, r_bound))
-        print(f'rga_order kernel ({card}): {label} shape K={Kr} m={mr}: '
-              f'{r_ms:.4f} ms/launch, plain PyTorch {r_plain:.4f} ms, bound '
-              f'{r_bound:.5f} ms ({r_bytes} bytes at 3.35 TB/s), max '
-              f'|kernel - plain| {rga_err}', flush=True)
-    r_ms, r_plain, r_bound = rga_times[-1]
+        rga_times.append((r_kernel, r_plain, r_bound))
+        print(f'rga_order kernel ({card}): {label} shape K={Kr} m={mr}, '
+              f'narrow variant: {_fmt_t(r_kernel)} per launch on the device '
+              f'(a CUDA graph of 50 launches, median of 5 replays); the '
+              f'whole step (_rga_order_batched, called eagerly) '
+              f'{_fmt_t(r_step)}; beside it the wide kernel on the sorted '
+              f'planes {_fmt_t(r_wide)} (device) and the PyTorch sort + wide '
+              f'kernel step {_fmt_t(r_sort_wide)} (eager); plain PyTorch '
+              f'{_fmt_t(r_plain)}; bound {r_bound:.5f} ms ({r_bytes} bytes '
+              f'at 3.35 TB/s); max |kernel - plain| {rga_err}', flush=True)
+    r_kernel, r_plain, r_bound = rga_times[-1]
     kernels.append({
         'name': 'rga_order', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/rga_order.cu',
         'replaces': 'automerge_tpu/device/pallas_sequence.py:165',
         'launches': rga_main + dds_counts['rga_order'],
-        'max_abs_err': rga_err, 'ms': r_ms, 'plain_ms': r_plain,
-        'bound_ms': r_bound, 'bound_by': 'bytes', 'library_ms': None})
+        'max_abs_err': rga_err, 'ms': r_kernel[0], 'plain_ms': r_plain[0],
+        'bound_ms': r_bound, 'bound_by': 'bytes', 'library_ms': None,
+        'variant': ran['rga_order']})
 
     # flat-map resolve: the map batch's own inputs
     a, kw = dds_inputs['flatmap']
@@ -757,7 +925,7 @@ def main():
     D, N = a[0].shape
     A = a[3].shape[2]
     S = kw['num_segments']
-    f_ms = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw))
+    f_t = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw), graph=True)
     # the plain version is the torch segment resolve (kernel='xla')
     f_plain = _time_ms(lambda: merge.resolve_assignments_batch(*a, **kw),
                        iters=20)
@@ -766,17 +934,20 @@ def main():
     f_bytes = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + 2 * D * S * 4
     f_bound = f_bytes / _HBM_BYTES_PER_S * 1e3
     print(f'flatmap_resolve kernel ({card}): device doc set map batch '
-          f'shape D={D} N={N} A={A} S={S}: {f_ms:.4f} ms/launch, plain '
-          f'PyTorch (the torch segment resolve, kernel=\'xla\') '
-          f'{f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_bytes} bytes at '
-          f'3.35 TB/s), max |kernel - plain| {fm_err}', flush=True)
+          f'shape D={D} N={N} A={A} S={S}: {_fmt_t(f_t)} per launch on '
+          f'the device (a CUDA graph of 50 launches), plain PyTorch (the '
+          f'torch segment resolve, kernel=\'xla\') {_fmt_t(f_plain)}, '
+          f'bound {f_bound:.5f} ms '
+          f'({f_bytes} bytes at 3.35 TB/s), max |kernel - plain| {fm_err}',
+          flush=True)
     kernels.append({
         'name': 'flatmap_resolve', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/flatmap_resolve.cu',
         'replaces': 'automerge_tpu/device/pallas_merge.py:136',
         'launches': dds_counts['flatmap_resolve'],
-        'max_abs_err': fm_err, 'ms': f_ms, 'plain_ms': f_plain,
-        'bound_ms': f_bound, 'bound_by': 'bytes', 'library_ms': None})
+        'max_abs_err': fm_err, 'ms': f_t[0], 'plain_ms': f_plain[0],
+        'bound_ms': f_bound, 'bound_by': 'bytes', 'library_ms': None,
+        'variant': 'block'})
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,12 @@
 """The edit stream: the PyTorch port's plain versions against the JAX
 package's ``edit_stream`` / ``edit_stream_packed`` (and once against the
 Pallas kernel in interpret mode) on numpy-seeded planes, including
-``e_pad`` below the class counts (the drop path). ``dispatch_edit_stream``
-runs the plain version for CPU tensors; the CUDA kernel is held against
-the plain version on the card (``cuda``-marked cases)."""
+``e_pad`` below the class counts (the drop path), ``e_pad`` = 1 and
+``e_pad`` = m. ``dispatch_edit_stream`` runs the plain version for CPU
+tensors; the CUDA kernel's variants (one warp per row, one block per
+row, the block's global-memory bitmasks) are held against the plain
+version on the card (``cuda``-marked cases; run there with ``python -m
+pytest tests/test_torch_edit_stream.py -m cuda``)."""
 
 import jax
 import numpy as np
@@ -33,7 +36,7 @@ def _t(*xs):
 
 
 CASES = [(1, 8, 8), (5, 64, 8), (5, 64, 24), (7, 200, 16), (3, 200, 64),
-         (2, 40, 1)]
+         (2, 40, 1), (4, 33, 1), (4, 33, 33), (2, 200, 200)]
 
 
 @pytest.mark.parametrize('K,m,e_pad', CASES)
@@ -84,6 +87,14 @@ def test_dispatch_on_cpu_uses_the_plain_version(fmt):
                                   else (pv, nv, pi, ni), tb, 16), got)
 
 
+def test_warp_bound():
+    assert tv.M_WARP_ES >= 32
+    assert tv.variant(tv.M_WARP_ES) == 'warp'
+    assert tv.variant(4096, force='warp') == 'warp'
+    with pytest.raises(ValueError):
+        tv.variant(64, force='grid')
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     rng = np.random.default_rng(6)
     _, _, _, _, tb, packed = random_planes(rng, 2, 16)
@@ -118,5 +129,60 @@ def test_cuda_kernel_matches_plain(cuda_device, fmt, K, m, e_pad):
     got = tv.dispatch_edit_stream(fmt, planes, tb, e_pad)
     torch.cuda.synchronize()
     assert tv.launches == before + 1
+    assert tv.last_variant == tv.variant(m)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _card_case(dev, fmt, K, m, e_pad, seed):
+    pv, nv, pi, ni, tb, packed = random_planes(np.random.default_rng(seed),
+                                               K, m)
+    t_u8 = torch.as_tensor(tb).to(dev)
+    if fmt == 'packed':
+        planes = torch.as_tensor(packed).to(dev)
+        want = tv.edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    else:
+        planes = tuple(x.to(dev) for x in _t(pv, nv, pi, ni))
+        want = tv.edit_stream(*planes, t_u8, e_pad=e_pad)
+    return planes, t_u8, want
+
+
+def _widths():
+    w = tv.M_WARP_ES
+    return [8, 32, 33, 64, 200, w, w + 1, 4096, 32767]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('e_pad', ['drop', 'one', 'm'])
+@pytest.mark.parametrize('i', range(9))
+@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+def test_cuda_variants_match_plain(cuda_device, fmt, i, e_pad):
+    m = _widths()[i]
+    K = max(2, min(256, 300_000 // m))
+    e = {'drop': max(1, m // 8), 'one': 1, 'm': m}[e_pad]
+    planes, t_u8, want = _card_case(cuda_device, fmt, K, m, e, K + m + e)
+    if e_pad == 'drop':
+        assert bool((want[5] > e).any())      # the drop path is hit
+    before = tv.launches
+    got = tv.edit_stream_cuda(fmt, planes, t_u8, e)
+    assert tv.last_variant == tv.variant(m) == \
+        ('warp' if m <= tv.M_WARP_ES else 'block')
+    forced = [tv.edit_stream_cuda(fmt, planes, t_u8, e, force=v)
+              for v in ('warp', 'block')]
+    torch.cuda.synchronize()
+    assert tv.launches == before + 3 and tv.last_variant == 'block'
+    for out in (got, *forced):
+        for a, b in zip(want, out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_block_global_matches_plain(cuda_device):
+    m = 300_000                     # past the block's shared-memory cap
+    planes, t_u8, want = _card_case(cuda_device, 'cols', 2, m, 4096, 3)
+    assert tv.variant(m) == 'block-global'
+    got = tv.edit_stream_cuda('cols', planes, t_u8, 4096)
+    torch.cuda.synchronize()
+    assert tv.last_variant == 'block-global'
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)

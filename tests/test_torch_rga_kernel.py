@@ -1,15 +1,18 @@
-"""RGA ordering from the child sort: the PyTorch port's plain version
-(``sequence._order_from_sorted_plain``, the CPU path of
-``sequence._order_from_sorted``) against the JAX package's Pallas kernel
-``rga_order_batch_pallas`` in interpret mode (``vis_index`` and
-``length``, the outputs the Pallas kernel has) on numpy-seeded ragged
-trees — exact equality, dtypes included. The CUDA kernel is held
-against the plain version on the card (``cuda``-marked cases: every
-output, ``tree_pos`` on valid rows, including the global-memory variant
-at m = 40,000; run there with ``python -m pytest
+"""RGA ordering and its CUDA kernels. The PyTorch port's plain version
+(``sequence._rga_order_plain`` — ``_child_sort``, then
+``_order_from_sorted_plain`` — the CPU path of ``_rga_order_batched``)
+against the JAX package's ``_rga_order_batched`` (the one-hot MXU variant
+up to m = 512, the gather variant above) on every output, and against
+its Pallas kernel ``rga_order_batch_pallas`` in interpret mode on
+``vis_index`` and ``length`` (the outputs the Pallas kernel has), on
+numpy-seeded random, prepend and chain trees — exact equality, dtypes
+included. The CUDA kernels are held against the plain versions on the
+card (``cuda``-marked cases: every output, ``tree_pos`` on valid rows;
+the narrow kernel at every width up to 512, the wide one at every width
+including its global-memory variant; run there with ``python -m pytest
 tests/test_torch_rga_kernel.py -m cuda``). The JAX package is imported
-inside the tests that compare with it, so the card's cases need only
-the port."""
+inside the tests that compare with it, so the card's cases need only the
+port."""
 
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ import torch
 
 from automerge_tpu_torch.device import cuda_sequence, sequence
 
-from chip_smoke import random_trees
+from chip_smoke import TREES, random_trees, wide_key_trees
 
 torch.set_num_threads(1)
 
@@ -25,10 +28,19 @@ OUTS = ('tree_pos', 'vis_index', 'node_at_pos', 'length')
 
 
 def _sorted_inputs(planes):
-    """The inputs of the second step of ``_rga_order_batched``."""
+    """The inputs of the wide kernel and its plain version."""
     parent, elem, actor, visible, valid = planes
     return (*sequence._child_sort(parent, elem, actor, valid), visible,
             valid)
+
+
+def _same(got, want, valid, keys=OUTS):
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
+        if k == 'tree_pos':
+            a, b = a[valid], b[valid]
+        assert np.array_equal(a, b), k
 
 
 @pytest.mark.parametrize('K,m', [(3, 16), (9, 130)])
@@ -46,6 +58,29 @@ def test_plain_matches_jax_pallas_interpret(K, m):
         assert a.dtype == b.dtype and np.array_equal(a, b), k
 
 
+@pytest.mark.parametrize('tree', ['prepend', 'chain'])
+def test_rga_plain_matches_jax_pallas_interpret(tree):
+    import jax.numpy as jnp
+    from automerge_tpu.device.pallas_sequence import rga_order_batch_pallas
+    planes = TREES[tree](np.random.default_rng(17), 4, 40)
+    want = rga_order_batch_pallas(*(jnp.asarray(p) for p in planes),
+                                  interpret=True)
+    got = sequence._rga_order_plain(*(torch.as_tensor(p) for p in planes))
+    _same({k: v.numpy() for k, v in got.items()}, want, planes[4],
+          keys=('vis_index', 'length'))
+
+
+@pytest.mark.parametrize('tree', sorted(TREES))
+@pytest.mark.parametrize('K,m', [(5, 33), (3, 600)])
+def test_rga_plain_matches_jax_rga_order_batched(tree, K, m):
+    import jax.numpy as jnp
+    from automerge_tpu.device import sequence as js
+    planes = TREES[tree](np.random.default_rng(K * 1000 + m), K, m)
+    want = js.rga_order_batch(*(jnp.asarray(p) for p in planes))
+    got = sequence._rga_order_plain(*(torch.as_tensor(p) for p in planes))
+    _same({k: v.numpy() for k, v in got.items()}, want, planes[4])
+
+
 def test_cpu_planes_take_the_plain_version():
     planes = [torch.as_tensor(p)
               for p in random_trees(np.random.default_rng(4), 5, 40)]
@@ -59,6 +94,14 @@ def test_cpu_planes_take_the_plain_version():
         cuda_sequence.order_from_sorted_cuda(
             *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
             planes[3], planes[4], rounds=7)
+    with pytest.raises(ValueError):
+        cuda_sequence.rga_order_cuda(*planes, rounds=7)
+
+
+def test_dispatch_bounds():
+    assert 1 <= cuda_sequence.M_NARROW <= 512
+    assert cuda_sequence.variant(1) == 'narrow'
+    assert cuda_sequence.variant(cuda_sequence.M_NARROW) == 'narrow'
 
 
 @pytest.fixture
@@ -67,6 +110,17 @@ def cuda_device():
         pytest.skip('needs an NVIDIA card (run on the card: python -m '
                     'pytest tests/test_torch_rga_kernel.py -m cuda)')
     return torch.device('cuda')
+
+
+# wide-key trees take the narrow kernel's 64-bit and 128-bit key paths
+# (the others its 32-bit one); the JAX package negates int32 keys, so
+# they are held against the port's plain version only
+CARD_TREES = {**TREES, 'wide-key': wide_key_trees}
+
+
+def _card_planes(tree, K, m, dev):
+    return [torch.as_tensor(p).to(dev)
+            for p in CARD_TREES[tree](np.random.default_rng(K + m), K, m)]
 
 
 @pytest.mark.cuda
@@ -81,6 +135,7 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
     torch.cuda.synchronize()
     assert cuda_sequence.launches == before + 1
     assert cuda_sequence.uses_global_scratch(m) == (m == 40000)
+    assert cuda_sequence.last_variant == cuda_sequence.variant(m)
     valid = planes[4]
     for k in OUTS:
         assert got[k].dtype == want[k].dtype, k
@@ -88,3 +143,65 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
             assert torch.equal(got[k][valid], want[k][valid]), k
         else:
             assert torch.equal(got[k], want[k]), k
+
+
+def _widths():
+    n = cuda_sequence.M_NARROW
+    return [1, 2, 31, 32, 33, 64, n, n + 1, 4096, 12799, 12800, 40000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tree', sorted(CARD_TREES))
+@pytest.mark.parametrize('i', range(12))
+def test_cuda_dispatch_matches_plain(cuda_device, tree, i):
+    m = _widths()[i]
+    K = max(2, min(64, 200_000 // m))
+    planes = _card_planes(tree, K, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    before = cuda_sequence.launches
+    got = sequence._rga_order_batched(*planes)
+    torch.cuda.synchronize()
+    assert cuda_sequence.launches == before + 1
+    expect = 'narrow' if m <= cuda_sequence.M_NARROW else \
+        'wide-global' if m >= 12800 else 'wide'
+    assert cuda_sequence.variant(m) == cuda_sequence.last_variant == expect
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tree', sorted(CARD_TREES))
+@pytest.mark.parametrize('m', [1, 2, 31, 32, 33, 64, 100, 256, 257, 512])
+def test_cuda_narrow_and_wide_match_plain(cuda_device, tree, m):
+    K = max(2, min(300, 100_000 // m))
+    planes = _card_planes(tree, K, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    rounds = sequence._ceil_log2(m) + 1
+    narrow = cuda_sequence.rga_order_cuda(
+        *(t.to(torch.int32) for t in planes[:3]), planes[3], planes[4],
+        rounds=rounds)
+    assert cuda_sequence.last_variant == 'narrow'
+    wide = cuda_sequence.order_from_sorted_cuda(
+        *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
+        planes[3], planes[4], rounds=rounds)
+    assert cuda_sequence.last_variant == 'wide'
+    torch.cuda.synchronize()
+    valid = planes[4].cpu()
+    for got in (narrow, wide):
+        _same({k: v.cpu() for k, v in got.items()},
+              {k: v.cpu() for k, v in want.items()}, valid)
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_path_makes_no_sort(cuda_device, monkeypatch):
+    planes = _card_planes('random', 512, 64, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+
+    def no_sort(*a, **kw):
+        raise AssertionError('torch.sort on the narrow RGA path')
+    monkeypatch.setattr(torch, 'sort', no_sort)
+    got = sequence._rga_order_batched(*planes)
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'narrow'
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
