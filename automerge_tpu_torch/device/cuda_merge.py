@@ -20,9 +20,15 @@ Two implementations, bit-identical by construction:
   replaces ``_make_kernel`` / ``_resolve_pallas_padded`` /
   ``resolve_assignments_batch_pallas`` (``pallas_merge.py`` :42-193):
   where the TPU kernel compares all op pairs of a document in tiles and
-  gathers clocks with one-hot MXU matmuls, one thread block per
-  document here keeps the plain version's slot maxima in shared memory
-  and updates them with atomic maxima, O(N * A) per document.
+  gathers clocks with one-hot MXU matmuls, the kernel keeps the plain
+  version's slot maxima in shared memory and updates them with atomic
+  maxima, O(N * A) per document. Documents whose slots fit a warp's
+  share of shared memory take one warp each (8 to a CTA): the warp
+  reads each op once into its shared slice, streams the clock block
+  coalesced, and elects each field's winner with one 64-bit atomic
+  maximum per op. The rest take one thread block each (in a global
+  scratch past the shared-memory cap). :func:`variant` says which a
+  shape takes.
 
 :func:`dispatch_resolve` launches the kernel for every CUDA tensor
 (raising if the build or the launch fails — there is no fallback) and
@@ -38,32 +44,81 @@ from . import merge as _merge
 
 _I32 = torch.int32
 
+# the warp variant takes a shape when one warp's slice fits a CTA's
+# shared memory and its clock stream moves 16-byte vectors (A % 4 == 0)
+# or it has at most N_WARP_SCALAR ops; the block variant takes the rest
+# (the crossovers at the callers' padding buckets, measured on an H100:
+# PERF.md)
+N_WARP_SCALAR = 512
+# the shared memory a CTA of either variant may use
+_SMEM_LIMIT = 200 * 1024
+
 # launches of the CUDA kernel since the last reset (one per launch, in
 # resolve_cuda only) — the proof that a run went through the kernel
 launches = 0
+# the variant of the latest launch ('warp', 'block' or 'block-global')
+last_variant = None
 
-# seg_id, actor, seq, clock, is_del, valid, surviving, winner,
+# variant codes of the kernel's C entry point
+_VARIANTS = {'warp': 0, 'block': 1, 'block-global': 2}
+
+# variant, seg_id, actor, seq, clock, is_del, valid, surviving, winner,
 # seg_max_actor, scratch, D, N, S, A, stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def reset_launches():
-    global launches
+    global launches, last_variant
     launches = 0
+    last_variant = None
+
+
+def warp_slice_bytes(N, S, A):
+    """Shared-memory bytes of one warp of the warp variant: S int64
+    winner keys and S*A clock maxima (each padded to 16 bytes), then the
+    stash of three int32 words per op for N rounded up to 4."""
+    def r16(b):
+        return (b + 15) // 16 * 16
+    return r16(8 * S) + r16(4 * S * A) + 12 * ((N + 3) // 4 * 4)
+
+
+def variant(N, S, A, force=None):
+    """The kernel variant a launch of ``N`` ops per document, ``S``
+    segments and ``A`` actors takes: ``'warp'`` (one warp per document)
+    when :func:`warp_slice_bytes` fits a CTA and ``A % 4 == 0 or N <=
+    N_WARP_SCALAR``, else ``'block'`` (one thread block per document),
+    ``'block-global'``
+    when the block's ``(S+1)*(A+2)`` slot words exceed the shared-memory
+    cap. ``force`` ('warp' or 'block') overrides the bounds; a forced
+    warp whose slice cannot fit a CTA raises."""
+    if force not in (None, 'warp', 'block'):
+        raise ValueError(f'unknown flat-map variant {force!r}')
+    fits = warp_slice_bytes(N, S, A) <= _SMEM_LIMIT
+    v = force or ('warp' if fits and (A % 4 == 0 or N <= N_WARP_SCALAR)
+                  else 'block')
+    if v == 'warp' and not fits:
+        raise ValueError(f'the warp variant cannot hold N={N} S={S} A={A} '
+                         f'({warp_slice_bytes(N, S, A)} bytes a warp)')
+    if v == 'block' and (S + 1) * (A + 2) * 4 > _SMEM_LIMIT:
+        v = 'block-global'
+    return v
 
 
 def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
-                 num_segments):
+                 num_segments, force=None):
     """Launch the flat-map kernel on CUDA tensors: int32 ``seg_id``,
     ``actor``, ``seq`` [D, N], int32 ``clock`` [D, N, A], bool
     ``is_del``/``valid`` [D, N], all contiguous. Returns the plain
     version's dict: ``surviving`` bool [D, N], ``winner`` and
     ``seg_max_actor`` int32 [D, S] (empty segments -1 / INT32_MIN).
+    ``force`` picks a variant regardless of the shape (see
+    :func:`variant`; the tests use it).
 
     Bound: per call the kernel must read ``D*N*(14 + 4*A)`` bytes and
     write ``D*N + 8*D*S`` bytes, with O(D*N*A) integer maxima — bound by
     memory traffic."""
-    global launches
+    global launches, last_variant
     D, N = seg_id.shape
     dev = seg_id.device
     if dev.type != 'cuda':
@@ -85,25 +140,24 @@ def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
            'seg_max_actor': seg_max_actor}
     if D == 0:                  # no documents: nothing to launch
         return out
-    fn = cuda_build.load('flatmap_resolve', 'flatmap_resolve_launch',
+    var = variant(N, S, A, force)
+    fn = cuda_build.load('flatmap_resolve', 'flatmap_resolve_run',
                          _ARGTYPES)
-    uses_smem = cuda_build.load('flatmap_resolve',
-                                'flatmap_resolve_uses_smem',
-                                [ctypes.c_int, ctypes.c_int])
-    scratch = None if uses_smem(S, A) else \
-        torch.empty((D, (S + 1) * (A + 2)), dtype=_I32, device=dev)
+    scratch = torch.empty((D, (S + 1) * (A + 2)), dtype=_I32, device=dev) \
+        if var == 'block-global' else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(seg_id.data_ptr(), actor.data_ptr(), seq.data_ptr(),
-                 clock.data_ptr(), is_del.data_ptr(), valid.data_ptr(),
-                 surviving.data_ptr(), winner.data_ptr(),
+        err = fn(_VARIANTS[var], seg_id.data_ptr(), actor.data_ptr(),
+                 seq.data_ptr(), clock.data_ptr(), is_del.data_ptr(),
+                 valid.data_ptr(), surviving.data_ptr(), winner.data_ptr(),
                  seg_max_actor.data_ptr(),
                  0 if scratch is None else scratch.data_ptr(),
                  D, N, S, A, stream)
     if err != 0:
-        raise RuntimeError(f'flatmap_resolve kernel launch failed: CUDA '
-                           f'error {err}')
+        raise RuntimeError(f'flatmap_resolve kernel launch failed ({var} '
+                           f'variant): CUDA error {err}')
     launches += 1
+    last_variant = var
     return out
 
 

@@ -20,9 +20,11 @@ exits non-zero without a result line):
    both sides of ``M_NARROW``, (64, 4096) and (2, 40000) — through the
    dispatch (narrow kernel, or sort + wide kernel, the last shape on
    its global-memory variant) and, up to m = 512, both kernels
-   directly; the flat-map resolve on
-   ``gen_docset_workload(cross_clock=True)`` batches up to the flagship
-   10,240 docs x 128 ops x 8 actors;
+   directly; the flat-map resolve's dispatch and both its variants
+   (warp and block, forced) on ``gen_docset_workload(cross_clock=True)``
+   batches up to the flagship 10,240 docs x 128 ops x 8 actors and
+   10,241 docs, and a 6,000-segment shape on the block variant's global
+   memory;
 4. the general engine's tick: a 10,240-document collab-server fleet
    (about 99 ops per document, about 1.01M ops in one fused apply)
    through ``GeneralDocSet(device='cuda').apply_changes_batch`` twice
@@ -430,26 +432,44 @@ def _check_rga_kernel(dev):
 
 
 def _check_flatmap_kernel(dev):
-    """Phase 3c: the flat-map kernel against its plain version on
+    """Phase 3c: the flat-map kernel's variants (the dispatch's pick, and
+    the warp and block variants forced) against the plain version on
     ``gen_docset_workload(cross_clock=True)`` at the Pallas tests'
-    shapes and the flagship shape."""
+    shapes, the flagship shape (and one document more: a partial CTA)
+    and a slot-heavy shape on the block variant's global memory; the
+    first document's first ops carry out-of-range segment ids."""
     import torch
     from automerge_tpu_torch.device import cuda_merge, merge
     from automerge_tpu_torch.device.workloads import gen_docset_workload
     for D, N, A, keys, S in ((1, 8, 2, 3, 8), (3, 130, 4, 7, 130),
                              (8, 128, 8, 32, 128), (9, 257, 3, 40, 257),
-                             (10240, 128, 8, 32, 32)):
+                             (10240, 128, 8, 32, 32),
+                             (10241, 128, 8, 32, 32),
+                             (4, 64, 8, 6000, 6000)):
         args = [torch.as_tensor(a).to(dev) for a in gen_docset_workload(
             n_docs=D, n_ops=N, n_actors=A, n_keys=keys, seed=D + N,
             del_p=0.1, invalid_p=0.1, cross_clock=True)]
+        args[0][0, :3] = torch.tensor([-1, S, -S - 2], dtype=torch.int32)
         want = merge.resolve_assignments_batch(*args, num_segments=S)
-        got = cuda_merge.resolve_cuda(*args, num_segments=S)
-        torch.cuda.synchronize()
-        if _bits_err(got, want, f'flatmap {(D, N, A, S)}'):
-            raise AssertionError(f'flatmap kernel != plain at '
-                                 f'{(D, N, A, S)}')
+        picked = cuda_merge.variant(N, S, A)
+        ran = []
+        for force in (None, 'warp', 'block'):
+            if force == 'warp' and cuda_merge.warp_slice_bytes(N, S, A) > \
+                    cuda_merge._SMEM_LIMIT:
+                continue
+            got = cuda_merge.resolve_cuda(*args, num_segments=S,
+                                          force=force)
+            torch.cuda.synchronize()
+            ran.append(cuda_merge.last_variant)
+            if force is None and ran[-1] != picked:
+                raise AssertionError(f'flatmap at {(D, N, A, S)} ran '
+                                     f'{ran[-1]}, not {picked}')
+            if _bits_err(got, want, f'flatmap {(D, N, A, S)}'):
+                raise AssertionError(f'flatmap {ran[-1]} kernel != plain '
+                                     f'at {(D, N, A, S)}')
         print(f'kernel: flatmap_resolve (D={D}, N={N}, A={A}, S={S}) '
-              f'bit-equal to the plain version', flush=True)
+              f'bit-equal to the plain version: {", ".join(ran[1:])} '
+              f'(dispatch picks {picked})', flush=True)
 
 
 def _device_doc_set_path(card, n_docs, list_ops):
@@ -544,7 +564,8 @@ def _device_doc_set_path(card, n_docs, list_ops):
         counts = {'flatmap_resolve': cuda_merge.launches,
                   'rga_order': cuda_sequence.launches,
                   'edit_stream': cuda_view.launches,
-                  'rga_variant': cuda_sequence.last_variant}
+                  'rga_variant': cuda_sequence.last_variant,
+                  'flatmap_variant': cuda_merge.last_variant}
     finally:
         for name, fn in originals.items():
             setattr(DB, name, fn)
@@ -913,19 +934,30 @@ def main():
         'bound_ms': r_bound, 'bound_by': 'bytes', 'library_ms': None,
         'variant': ran['rga_order']})
 
-    # flat-map resolve: the map batch's own inputs
+    # flat-map resolve: the map batch's own inputs, through the variant
+    # the path ran and the block variant beside it
     a, kw = dds_inputs['flatmap']
-    got = cuda_merge.resolve_cuda(*a, **kw)
-    want = merge.resolve_assignments_batch(*a, **kw)
-    torch.cuda.synchronize()
-    fm_err = _bits_err(got, want, 'flatmap main path')
-    if fm_err:
-        raise AssertionError(f'flatmap kernel != plain at the main-path '
-                             f'shape (max |diff| {fm_err})')
     D, N = a[0].shape
     A = a[3].shape[2]
     S = kw['num_segments']
+    fm_ran = dds_counts['flatmap_variant']
+    if fm_ran != cuda_merge.variant(N, S, A):
+        raise AssertionError(f'the map batch ran the {fm_ran} flat-map '
+                             f'variant')
+    want = merge.resolve_assignments_batch(*a, **kw)
+    fm_err = 0
+    for force in (None, 'block'):
+        got = cuda_merge.resolve_cuda(*a, **kw, force=force)
+        torch.cuda.synchronize()
+        fm_err = max(fm_err, _bits_err(got, want, 'flatmap main path'))
+    if fm_err:
+        raise AssertionError(f'flatmap kernel != plain at the main-path '
+                             f'shape (max |diff| {fm_err})')
     f_t = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw), graph=True)
+    f_block = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw,
+                                                       force='block'),
+                       graph=True)
+    f_eager = _time_ms(lambda: cuda_merge.dispatch_resolve(*a, **kw))
     # the plain version is the torch segment resolve (kernel='xla')
     f_plain = _time_ms(lambda: merge.resolve_assignments_batch(*a, **kw),
                        iters=20)
@@ -934,12 +966,13 @@ def main():
     f_bytes = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + 2 * D * S * 4
     f_bound = f_bytes / _HBM_BYTES_PER_S * 1e3
     print(f'flatmap_resolve kernel ({card}): device doc set map batch '
-          f'shape D={D} N={N} A={A} S={S}: {_fmt_t(f_t)} per launch on '
-          f'the device (a CUDA graph of 50 launches), plain PyTorch (the '
-          f'torch segment resolve, kernel=\'xla\') {_fmt_t(f_plain)}, '
-          f'bound {f_bound:.5f} ms '
-          f'({f_bytes} bytes at 3.35 TB/s), max |kernel - plain| {fm_err}',
-          flush=True)
+          f'shape D={D} N={N} A={A} S={S}, {fm_ran} variant: {_fmt_t(f_t)} '
+          f'per launch on the device (a CUDA graph of 50 launches), the '
+          f'block variant {_fmt_t(f_block)}; dispatch_resolve called '
+          f'eagerly {_fmt_t(f_eager)}; plain PyTorch (the torch segment '
+          f'resolve, kernel=\'xla\') {_fmt_t(f_plain)}, bound '
+          f'{f_bound:.5f} ms ({f_bytes} bytes at 3.35 TB/s), max |kernel - '
+          f'plain| {fm_err}', flush=True)
     kernels.append({
         'name': 'flatmap_resolve', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/flatmap_resolve.cu',
@@ -947,7 +980,7 @@ def main():
         'launches': dds_counts['flatmap_resolve'],
         'max_abs_err': fm_err, 'ms': f_t[0], 'plain_ms': f_plain[0],
         'bound_ms': f_bound, 'bound_by': 'bytes', 'library_ms': None,
-        'variant': 'block'})
+        'variant': fm_ran})
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

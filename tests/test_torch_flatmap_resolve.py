@@ -3,11 +3,13 @@
 ``cuda_merge.dispatch_resolve``) against the JAX package's Pallas kernel
 in interpret mode and its XLA segment resolve, on numpy-seeded
 ``gen_docset_workload`` batches at the shapes of ``tests/test_pallas.py``
-— exact equality, dtypes included. The CUDA kernel is held against the
-plain version on the card (``cuda``-marked cases; run there with
-``python -m pytest tests/test_torch_flatmap_resolve.py -m cuda``). The
-JAX package is imported inside the tests that compare with it, so the
-card's cases need only the port."""
+— exact equality, dtypes included — and the variant dispatch's bounds.
+The CUDA kernel's variants (each forced through ``resolve_cuda``'s
+``force``) are held against the plain version on the card
+(``cuda``-marked cases; run there with ``python -m pytest
+tests/test_torch_flatmap_resolve.py -m cuda``). The JAX package is
+imported inside the tests that compare with it, so the card's cases
+need only the port."""
 
 import numpy as np
 import pytest
@@ -69,6 +71,66 @@ def test_all_deleted_segment():
     assert out['seg_max_actor'][0].tolist() == [-1] + [-(1 << 31)] * 3
 
 
+def test_all_invalid_segment_reads_minus_one_in_both_packages():
+    """A segment of only invalid (padding) ops reads seg_max_actor -1,
+    not the empty segment's INT32_MIN: the invalid ops scatter -1. Both
+    the plain version and the JAX package's Pallas kernel (interpret
+    mode) say so, and the warp variant's winner keys must keep it."""
+    import jax.numpy as jnp
+    from automerge_tpu.device.pallas_merge import \
+        resolve_assignments_batch_pallas
+    # segment 0: invalid ops only; 1: deleted ops only; 2: one live op
+    # of actor 2; 3: no op
+    args = _tiny([[0, 0, 1, 1, 2, 0]], [[1, 3, 1, 3, 2, 0]],
+                 np.ones((1, 6)), np.zeros((1, 6, 4)),
+                 [[0, 0, 1, 1, 0, 0]], [[0, 0, 1, 1, 1, 0]])
+    got = cuda_merge.dispatch_resolve(*args, num_segments=4)
+    assert got['seg_max_actor'][0].tolist() == [-1, -1, 2, -(1 << 31)]
+    assert got['winner'][0].tolist() == [-1, -1, 4, -1]
+    assert got['surviving'][0].tolist() == [False] * 4 + [True, False]
+    _same(resolve_assignments_batch_pallas(
+        *(jnp.asarray(a.numpy()) for a in args), num_segments=4,
+        interpret=True), got)
+
+
+# (N, S, A) -> the variant the dispatch documents: (16960, 32, 8) holds
+# a warp slice of exactly the shared-memory cap, (512, 32, 3) and
+# (512, 512, 1) N_WARP_SCALAR ops on the word-by-word clock stream (and
+# (1024, 256, 2) one bucket past it), (16, 4096, 8) a slot-heavy slice
+# that still fits, and (513, 5119, 8) block slots of exactly the cap
+VARIANT_CASES = [
+    ((128, 32, 8), 'warp'), ((1, 1, 1), 'warp'), ((16, 256, 8), 'warp'),
+    ((16, 4096, 8), 'warp'), ((512, 512, 1), 'warp'),
+    ((1024, 256, 2), 'block'), ((64, 1024, 16), 'warp'),
+    ((8192, 32, 8), 'warp'), ((16960, 32, 8), 'warp'),
+    ((16961, 32, 8), 'block'), ((512, 32, 3), 'warp'),
+    ((513, 32, 3), 'block'), ((8192, 32, 3), 'block'),
+    ((513, 5119, 8), 'block'), ((513, 5120, 8), 'block-global'),
+    ((64, 6000, 6000), 'block-global'),
+]
+
+
+@pytest.mark.parametrize('shape,want', VARIANT_CASES)
+def test_variant_bounds(shape, want):
+    N, S, A = shape
+    assert cuda_merge.variant(N, S, A) == want
+    if want == 'warp':
+        assert cuda_merge.warp_slice_bytes(N, S, A) <= 200 * 1024
+        assert A % 4 == 0 or N <= cuda_merge.N_WARP_SCALAR
+    assert cuda_merge.variant(N, S, A, force='block') == \
+        ('block-global' if want == 'block-global' else 'block')
+
+
+def test_variant_force():
+    assert cuda_merge.warp_slice_bytes(16960, 32, 8) == 200 * 1024
+    assert cuda_merge.variant(8192, 32, 3, force='warp') == 'warp'
+    assert cuda_merge.variant(16, 4096, 8, force='warp') == 'warp'
+    with pytest.raises(ValueError):
+        cuda_merge.variant(64, 6000, 8, force='warp')   # slice > the cap
+    with pytest.raises(ValueError):
+        cuda_merge.variant(128, 32, 8, force='wide')
+
+
 def test_supersession_chain():
     args = _tiny(np.zeros((1, 2)), [[0, 1]], [[1, 1]],
                  [[[0, 0], [1, 0]]], np.zeros((1, 2)), np.ones((1, 2)))
@@ -126,21 +188,54 @@ def cuda_device():
     return torch.device('cuda')
 
 
+CUDA_SHAPES = ([s + (s[1],) for s in SHAPES]
+               + [(10240, 128, 8, 32, 32), (10241, 128, 8, 32, 32),
+                  (4, 64, 8, 6000, 6000)])
+
+
+def _edge_rows(args, n_segs):
+    """Doc 0: out-of-range segment ids (the sink slot / the wrapped
+    gather); doc 1: all padding; doc 2: segment 0 holds only deleted or
+    invalid ops."""
+    seg_id, _, _, _, is_del, valid = args
+    seg_id[0, :3] = torch.tensor([-1, n_segs, -n_segs - 2],
+                                 dtype=torch.int32)
+    if seg_id.shape[0] > 1:
+        valid[1] = False
+    if seg_id.shape[0] > 2:
+        seg_id[2, :4] = 0
+        in0 = seg_id[2] == 0
+        odd = torch.arange(in0.shape[0], device=in0.device) % 2 == 1
+        is_del[2] |= in0
+        valid[2] &= ~(in0 & odd)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n_docs,n_ops,n_actors,n_keys,n_segs',
-                         [s + (s[1],) for s in SHAPES]
-                         + [(10240, 128, 8, 32, 32), (4, 64, 8, 6000, 6000)])
+@pytest.mark.parametrize('force', [None, 'warp', 'block'])
+@pytest.mark.parametrize('n_docs,n_ops,n_actors,n_keys,n_segs', CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, n_docs, n_ops, n_actors,
-                                   n_keys, n_segs):
+                                   n_keys, n_segs, force):
     args = [torch.as_tensor(a).to(cuda_device)
             for a in _workload(n_docs, n_ops, n_actors, n_keys, seed=5)]
-    # out-of-range segment ids take the sink slot / the wrapped gather
-    args[0][0, :3] = torch.tensor([-1, n_segs, -n_segs - 2],
-                                  dtype=torch.int32)
+    _edge_rows(args, n_segs)
     want = merge.resolve_assignments_batch(*args, num_segments=n_segs)
+    if n_segs > 1 and n_docs > 2:
+        assert int(want['seg_max_actor'][2, 0]) == -1
     before = cuda_merge.launches
-    got = engine.pick_resolve_kernel('auto')(*args, num_segments=n_segs)
+    if force == 'warp' and cuda_merge.warp_slice_bytes(
+            n_ops, n_segs, n_actors) > 200 * 1024:
+        with pytest.raises(ValueError):
+            cuda_merge.resolve_cuda(*args, num_segments=n_segs, force=force)
+        return
+    if force is None:
+        got = engine.pick_resolve_kernel('auto')(*args, num_segments=n_segs)
+    else:
+        got = cuda_merge.resolve_cuda(*args, num_segments=n_segs,
+                                      force=force)
     torch.cuda.synchronize()
     assert cuda_merge.launches == before + 1
+    assert cuda_merge.last_variant == cuda_merge.variant(
+        n_ops, n_segs, n_actors, force)
     for k in KEYS:
         assert want[k].dtype == got[k].dtype and torch.equal(want[k], got[k])
+

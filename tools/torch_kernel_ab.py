@@ -1,30 +1,39 @@
-"""Time the PyTorch port's RGA-order and edit-stream CUDA kernels against
-another checkout's, in turns, on one CUDA card; then the crossovers of
-this tree's variants.
+"""Time the PyTorch port's CUDA kernels against another checkout's, in
+turns, on one CUDA card; then the crossovers of this tree's variants.
 
     mkdir -p _archive/base && git archive <commit> | tar -x -C _archive/base
-    python3 tools/torch_kernel_ab.py --base _archive/base
+    python3 tools/torch_kernel_ab.py --base _archive/base \\
+        [--kernels flatmap_resolve rga_order edit_stream]
 
-The base checkout's kernels must have the C interface of the versions
-these replaced (``rga_order_launch``, and an ``edit_stream_launch``
-that takes a ``[K, m]`` grid scratch). The script builds the base's
-``csrc/rga_order.cu`` and ``csrc/edit_stream.cu`` with nvcc (``sm_90a``)
-into ``automerge_tpu_torch/_build/base/`` beside this tree's kernels,
-captures the inputs the general engine's main path hands the two kernels
-(a ``--docs``-document config-5 fleet, two ticks, as ``chip_smoke.py``
-phase 4), and times at those inputs in turns — base, this tree, this
-tree, base — with 5 timings of 50 launches a turn:
+The base checkout's kernels must have the C interfaces of this tree's
+(``flatmap_resolve_run``, ``rga_narrow_launch`` and an
+``edit_stream_launch`` that take their variant first), or, for the
+flat-map kernel, its first one (``flatmap_resolve_launch``, which picks
+the variant itself). The script builds
+the base's ``csrc/<kernel>.cu`` with nvcc (``sm_90a``) into
+``automerge_tpu_torch/_build/base/`` beside this tree's kernels,
+captures the inputs the main paths hand the kernels, and times at those
+inputs in turns — base, this tree, this tree, base — with 5 timings of
+50 launches a turn:
 
-- each kernel alone, on buffers allocated once, 50 launches captured in
-  a CUDA graph (device time);
-- the RGA step as the main path pays it, called eagerly: the base's
-  PyTorch child sort, casts and kernel against this tree's
-  ``sequence._rga_order_batched``.
+- ``flatmap_resolve``: the inputs of a ``--docs``-document map-only
+  ``DeviceDocSet`` batch (``chip_smoke.py`` phase 5). The kernel alone,
+  on buffers allocated once, 50 launches captured in a CUDA graph
+  (device time), and again launch by launch with the L2 cache flushed
+  before each (the inputs read from HBM); the call as the path pays it,
+  eagerly (the base's output allocations and launch against this tree's
+  ``dispatch_resolve``). Then the warp and block variants at the
+  shapes the callers' padding buckets (``config.Options._pad``) give:
+  N in ``CROSS_N``, A in ``CROSS_A``, S = N / 4 and S = N (a batch never
+  has more fields than rows), where the warp's slice fits a CTA, each
+  at D*N = 1,310,720 ops, the map batch's size.
+- ``rga_order`` and ``edit_stream``: the inputs of a ``--docs``-document
+  config-5 fleet, two ticks (``chip_smoke.py`` phase 4); each kernel
+  alone, as above. Then the RGA order's narrow and wide variants at m in
+  {64, 128, 256, 512} (kernel alone and step, random trees) and the edit
+  stream's warp and block variants at m in {64, 256, 512, 1024, 4096}
+  (packed, e_pad 64), each at K*m = 786,432 nodes.
 
-Then, in turns again, the RGA order's narrow and wide variants at m in
-{64, 128, 256, 512} (kernel alone and step, random trees) and the edit
-stream's warp and block variants at m in {64, 256, 512, 1024, 4096}
-(packed, e_pad 64), each at K*m = 786,432 nodes, the main path's size.
 Prints one line per comparison (median, min and max of the 10 timings of
 each side) and writes them all, with the card's name and power limit, to
 ``--out``.
@@ -46,6 +55,21 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 NODES = 12288 * 64          # K*m of the main path's RGA and edit stream
+OPS = 10240 * 128           # D*N of the main path's flat-map resolve
+KERNELS = ('flatmap_resolve', 'rga_order', 'edit_stream')
+# the flat-map variants' crossover grid: ops per document and actors,
+# each a padding bucket of config.Options._pad
+CROSS_N = (16, 64, 128, 512, 1024, 2048, 4096)
+CROSS_A = (1, 2, 4, 8, 16, 24)
+# bytes read between two launches of a cold timing: more than the
+# H100's 50 MB L2 cache
+FLUSH_BYTES = 256 << 20
+
+# the flat-map kernel's first C interface (seg_id, actor, seq, clock,
+# is_del, valid, surviving, winner, seg_max_actor, scratch, D, N, S, A,
+# stream): cuda_merge._ARGTYPES without the leading variant
+_FM_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
 
 
 def _stats(t):
@@ -53,15 +77,46 @@ def _stats(t):
             'max_ms': float(max(t)), 'samples_ms': [float(x) for x in t]}
 
 
-def in_turns(label, a_name, a_fn, b_name, b_fn, graph, results):
-    """Time ``a_fn`` and ``b_fn`` in the order a, b, b, a (5 timings of
-    50 calls a turn); record and print each side's median and spread."""
+def cold_samples(fn, launches=25):
+    """Device times, in ms, of ``launches`` single calls of ``fn``,
+    each timed with its own CUDA events after a read of
+    ``FLUSH_BYTES``, which evicts the call's inputs from the L2 cache
+    (a read leaves no dirty lines to write back during the call). The
+    read is queued ahead of the call, so the events time the device,
+    not the host's launch."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device='cuda').fill_(1.0)
+    fn()
+    ev = []
+    for _ in range(launches):
+        flush.sum()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        ev.append((t0, t1))
+    torch.cuda.synchronize()
+    return [t0.elapsed_time(t1) for t0, t1 in ev]
+
+
+_TIMINGS = {'graph': 'device (CUDA graph)', 'eager': 'eager',
+            'cold': 'device, one launch after an L2 flush'}
+
+
+def in_turns(label, a_name, a_fn, b_name, b_fn, timing, results):
+    """Time ``a_fn`` and ``b_fn`` in the order a, b, b, a; record and
+    print each side's median and spread. ``timing`` 'graph': 5 replays
+    a turn of a CUDA graph of 50 calls; 'eager': 5 timings of 50 eager
+    calls; 'cold': :func:`cold_samples`."""
     samples = {a_name: [], b_name: []}
     for name, fn in ((a_name, a_fn), (b_name, b_fn), (b_name, b_fn),
                      (a_name, a_fn)):
-        samples[name] += chip_smoke._time_samples(fn, graph=graph)
+        samples[name] += cold_samples(fn) if timing == 'cold' else \
+            chip_smoke._time_samples(fn, graph=timing == 'graph')
     entry = {name: _stats(t) for name, t in samples.items()}
-    entry['timing'] = 'device (CUDA graph)' if graph else 'eager'
+    entry['timing'] = _TIMINGS[timing]
     results[label] = entry
     print(f'{label} [{entry["timing"]}]: ' + '; '.join(
         f'{n} {e["median_ms"]:.5f} ms (min {e["min_ms"]:.5f}, max '
@@ -69,9 +124,9 @@ def in_turns(label, a_name, a_fn, b_name, b_fn, graph, results):
         flush=True)
 
 
-def build_base(base):
-    """nvcc the base checkout's two kernels into _build/base/, in
-    parallel; returns {name: ctypes.CDLL}."""
+def build_base(base, names):
+    """nvcc the base checkout's kernels into _build/base/, in parallel;
+    returns {name: ctypes.CDLL}."""
     from automerge_tpu_torch.device import cuda_build
     out_dir = os.path.join(cuda_build.BUILD_DIR, 'base')
     os.makedirs(out_dir, exist_ok=True)
@@ -86,9 +141,7 @@ def build_base(base):
             errs[name] = res.stdout + res.stderr
         else:
             libs[name] = so
-
-    threads = [threading.Thread(target=one, args=(n,))
-               for n in ('rga_order', 'edit_stream')]
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
     for t in threads:
         t.start()
     for t in threads:
@@ -96,6 +149,115 @@ def build_base(base):
     if errs:
         raise RuntimeError(f'base build failed: {errs}')
     return {n: ctypes.CDLL(p) for n, p in libs.items()}
+
+
+def _bind(lib, entry, argtypes):
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream():
+    # read at each call: a graph capture launches on its own stream
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(err):
+    if err:
+        raise RuntimeError(f'launch failed: CUDA error {err}')
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def capture_map_batch(n_docs):
+    """The flat-map kernel's inputs from an ``n_docs``-document map-only
+    ``DeviceDocSet`` batch."""
+    from automerge_tpu_torch.device import cuda_merge
+    from automerge_tpu_torch.sync import DeviceDocSet
+    per_doc = chip_smoke.gen_map_fleet(n_docs)
+    cap = []
+    real = cuda_merge.resolve_cuda
+
+    def cap_fm(*a, **kw):
+        cap.append((a, kw))
+        return real(*a, **kw)
+    cuda_merge.resolve_cuda = cap_fm
+    try:
+        DeviceDocSet(device='cuda').apply_changes_batch(
+            {f'm{d}': per_doc[d] for d in range(n_docs)})
+    finally:
+        cuda_merge.resolve_cuda = real
+    return cap[-1]
+
+
+def ab_flatmap(args, base, results):
+    import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_merge
+    from automerge_tpu_torch.device.workloads import gen_docset_workload
+    dev = torch.device('cuda')
+    a, kw = capture_map_batch(args.docs)
+    D, N = a[0].shape
+    A, S = a[3].shape[2], kw['num_segments']
+    shape = f'D={D} N={N} A={A} S={S}'
+    code = cuda_merge._VARIANTS[cuda_merge.variant(N, S, A)]
+    n_fm = cuda_build.load('flatmap_resolve', 'flatmap_resolve_run',
+                           cuda_merge._ARGTYPES)
+    if hasattr(base, 'flatmap_resolve_launch'):
+        b_fm = _bind(base, 'flatmap_resolve_launch', _FM_LAUNCH_ARGTYPES)
+    else:
+        b_run = _bind(base, 'flatmap_resolve_run', cuda_merge._ARGTYPES)
+
+        def b_fm(*ptrs):
+            return b_run(code, *ptrs)
+
+    def outs(d, n, s):
+        return [torch.empty((d, n), dtype=torch.bool, device=dev),
+                torch.empty((d, s), dtype=torch.int32, device=dev),
+                torch.empty((d, s), dtype=torch.int32, device=dev)]
+    o = outs(D, N, S)
+
+    def base_k():
+        _check(b_fm(*_ptrs(a), *_ptrs(o), 0, D, N, S, A, _stream()))
+
+    def new_k():
+        _check(n_fm(code, *_ptrs(a), *_ptrs(o), 0, D, N, S, A, _stream()))
+    for timing, note in (('graph', ''), ('cold', ', L2 flushed')):
+        in_turns(f'flatmap_resolve kernel, main path {shape}{note}',
+                 'base', base_k, 'this tree', new_k, timing, results)
+
+    def base_call():
+        out = outs(D, N, S)
+        _check(b_fm(*_ptrs(a), *_ptrs(out), 0, D, N, S, A, _stream()))
+        return out
+    in_turns(f'flatmap_resolve call, main path {shape}',
+             'base (allocations + kernel)', base_call,
+             'this tree (dispatch_resolve)',
+             lambda: cuda_merge.dispatch_resolve(*a, **kw), 'eager',
+             results)
+
+    for n in CROSS_N:
+        for na in CROSS_A:
+            for s in sorted({max(n // 4, 1), n}):
+                if cuda_merge.warp_slice_bytes(n, s, na) > \
+                        cuda_merge._SMEM_LIMIT:
+                    continue
+                d = OPS // n
+                t = [torch.as_tensor(x).to(dev) for x in gen_docset_workload(
+                    n_docs=d, n_ops=n, n_actors=na, n_keys=s, seed=n + s,
+                    del_p=0.1, invalid_p=0.1, cross_clock=True)]
+                in_turns(f'flatmap_resolve variants, D={d} N={n} A={na} '
+                         f'S={s} (dispatch picks '
+                         f'{cuda_merge.variant(n, s, na)})',
+                         'warp', lambda: cuda_merge.resolve_cuda(
+                             *t, num_segments=s, force='warp'),
+                         'block', lambda: cuda_merge.resolve_cuda(
+                             *t, num_segments=s, force='block'), 'graph',
+                         results)
+                del t
 
 
 def capture_main_path(n_docs, list_ops=48):
@@ -133,10 +295,106 @@ def capture_main_path(n_docs, list_ops=48):
     return es[-1], rga[-1]
 
 
+def ab_sequence(args, base, results):
+    """The RGA order and edit stream, base against this tree, then the
+    crossovers of this tree's variants."""
+    import torch
+    from automerge_tpu_torch.device import (cuda_build, cuda_sequence,
+                                            cuda_view, sequence)
+    dev = torch.device('cuda')
+    I32 = torch.int32
+    (vis_fmt, planes, tb, e_pad), rga_in = capture_main_path(args.docs)
+    if 'edit_stream' in base:
+        b_es = _bind(base['edit_stream'], 'edit_stream_launch',
+                     cuda_view._ARGTYPES)
+        n_es = cuda_build.load('edit_stream', 'edit_stream_launch',
+                               cuda_view._ARGTYPES)
+        K, m = planes.shape
+        t_u8 = torch.as_tensor(tb).to(dev)
+        outs = [torch.empty((K, e_pad), dtype=I32, device=dev)
+                for _ in range(5)] + [torch.empty((K, 3), dtype=I32,
+                                                  device=dev)]
+        mb = t_u8.shape[1]
+
+        def es(fn):
+            return lambda: _check(fn(
+                0, 0, planes.data_ptr(), 0, 0, 0, 0, t_u8.data_ptr(),
+                *_ptrs(outs), 0, K, m, mb, e_pad, _stream()))
+        in_turns(f'edit_stream kernel, main path K={K} m={m} e_pad={e_pad}',
+                 'base', es(b_es), 'this tree', es(n_es), 'graph', results)
+
+    def rga_out(K, m):
+        return [torch.empty((K, m), dtype=I32, device=dev)
+                for _ in range(3)] + [torch.empty(K, dtype=I32, device=dev)]
+
+    n_rga = cuda_build.load('rga_order', 'rga_narrow_launch',
+                            cuda_sequence._NARROW_ARGTYPES)
+    if 'rga_order' in base:
+        b_rga = _bind(base['rga_order'], 'rga_narrow_launch',
+                      cuda_sequence._NARROW_ARGTYPES)
+        raw = [t.to(I32).contiguous() for t in rga_in[:3]] + \
+            [t.to(torch.bool).contiguous() for t in rga_in[3:]]
+        Kr, mr = raw[0].shape
+        rounds = sequence._ceil_log2(mr) + 1
+        o = rga_out(Kr, mr)
+
+        def rga(fn):
+            return lambda: _check(fn(*_ptrs(raw), *_ptrs(o), Kr, mr, rounds,
+                                     _stream()))
+        in_turns(f'rga_order kernel, main path K={Kr} m={mr}',
+                 'base', rga(b_rga), 'this tree', rga(n_rga), 'graph',
+                 results)
+
+    rng = np.random.default_rng(5)
+    if 'rga_order' in base:
+        w_launch = cuda_build.load('rga_order', 'rga_order_launch',
+                                   cuda_sequence._ARGTYPES)
+        for mw in (64, 128, 256, 512):
+            Kw = NODES // mw
+            raw = [torch.as_tensor(p).to(dev)
+                   for p in chip_smoke.random_trees(rng, Kw, mw)]
+            rounds = sequence._ceil_log2(mw) + 1
+            srt = [t.to(I32).contiguous() for t in sequence._child_sort(
+                raw[0], raw[1], raw[2], raw[4])]
+            o_n, o_w = rga_out(Kw, mw), rga_out(Kw, mw)
+            in_turns(f'rga_order variants, kernel alone, K={Kw} m={mw}',
+                     'narrow', lambda: _check(n_rga(
+                         *_ptrs(raw), *_ptrs(o_n), Kw, mw, rounds,
+                         _stream())),
+                     'wide', lambda: _check(w_launch(
+                         *_ptrs(srt), *_ptrs(raw[3:]), *_ptrs(o_w), 0, Kw,
+                         mw, rounds, _stream())), 'graph', results)
+
+            def wide_step():
+                o, p, q = sequence._child_sort(raw[0], raw[1], raw[2],
+                                               raw[4])
+                return cuda_sequence.order_from_sorted_cuda(
+                    o.to(I32), p.to(I32), q.to(I32), raw[3], raw[4],
+                    rounds=rounds)
+            in_turns(f'rga_order variants, step, K={Kw} m={mw}',
+                     'narrow', lambda: cuda_sequence.rga_order_cuda(
+                         *raw, rounds=rounds),
+                     'sort + wide', wide_step, 'eager', results)
+    if 'edit_stream' in base:
+        for mw in (64, 256, 512, 1024, 4096):
+            Kw = NODES // mw
+            _, _, _, _, tbw, packed = chip_smoke.random_planes(rng, Kw, mw)
+            v = torch.as_tensor(packed).to(dev)
+            tu = torch.as_tensor(tbw).to(dev)
+            in_turns(f'edit_stream variants, K={Kw} m={mw} e_pad=64',
+                     'warp', lambda: cuda_view.edit_stream_cuda(
+                         'packed', v, tu, 64, force='warp'),
+                     'block', lambda: cuda_view.edit_stream_cuda(
+                         'packed', v, tu, 64, force='block'), 'graph',
+                     results)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--base', default=os.path.join(ROOT, '_archive', 'base'))
     ap.add_argument('--docs', type=int, default=10240)
+    ap.add_argument('--kernels', nargs='+', choices=KERNELS,
+                    default=list(KERNELS))
     ap.add_argument('--out', default=os.path.join(
         ROOT, 'automerge_tpu_torch', '_build', 'kernel_ab.json'))
     args = ap.parse_args()
@@ -144,137 +402,17 @@ def main():
     if not torch.cuda.is_available():
         print('torch_kernel_ab: CUDA is not available', file=sys.stderr)
         return 2
-    from automerge_tpu_torch.device import (cuda_build, cuda_sequence,
-                                            cuda_view, sequence)
+    from automerge_tpu_torch.device import cuda_build
     card = chip_smoke._card_line()
     print(card, flush=True)
-    dev = torch.device('cuda')
-    I32 = torch.int32
-    cuda_build.build_all(('rga_order', 'edit_stream'), force=True)
-    base = build_base(args.base)
-    b_rga = base['rga_order'].rga_order_launch
-    b_rga.argtypes = cuda_sequence._ARGTYPES
-    b_rga.restype = ctypes.c_int
-    b_es = base['edit_stream'].edit_stream_launch
-    b_es.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
-    b_es.restype = ctypes.c_int
-    n_rga = cuda_build.load('rga_order', 'rga_narrow_launch',
-                            cuda_sequence._NARROW_ARGTYPES)
-    n_es = cuda_build.load('edit_stream', 'edit_stream_launch',
-                           cuda_view._ARGTYPES)
-
-    def stream():
-        # read at each call: a graph capture launches on its own stream
-        return torch.cuda.current_stream(dev).cuda_stream
-
-    def check(err):
-        if err:
-            raise RuntimeError(f'launch failed: CUDA error {err}')
-
-    def rga_out(K, m):
-        return [torch.empty((K, m), dtype=I32, device=dev)
-                for _ in range(3)] + [torch.empty(K, dtype=I32, device=dev)]
-
-    def ptrs(ts):
-        return [t.data_ptr() for t in ts]
-
-    def rga_fns(raw):
-        """The narrow kernel's launch on [K, m] raw planes and the wide
-        kernel's on their child sort (given its ctypes entry), each on
-        outputs allocated once; the sorted planes and the round count."""
-        K, m = raw[0].shape
-        rounds = sequence._ceil_log2(m) + 1
-        srt = [t.to(I32).contiguous()
-               for t in sequence._child_sort(raw[0], raw[1], raw[2], raw[4])]
-        o_n, o_w = rga_out(K, m), rga_out(K, m)
-        return {
-            'narrow_kernel': lambda: check(n_rga(
-                *ptrs(raw), *ptrs(o_n), K, m, rounds, stream())),
-            'wide_kernel': lambda fn=b_rga: check(fn(
-                *ptrs(srt), *ptrs(raw[3:]), *ptrs(o_w), 0, K, m, rounds,
-                stream())),
-            'srt': srt, 'rounds': rounds}
-
+    cuda_build.build_all(args.kernels, force=True)
+    base = build_base(args.base, args.kernels)
     results = {'card': card, 'torch': torch.__version__,
                'cuda': torch.version.cuda}
-
-    # ---- A/B at the main path's inputs ----
-    (vis_fmt, planes, tb, e_pad), rga_in = capture_main_path(args.docs)
-    K, m = planes.shape
-    t_u8 = torch.as_tensor(tb).to(dev)
-    outs = [torch.empty((K, e_pad), dtype=I32, device=dev)
-            for _ in range(5)] + [torch.empty((K, 3), dtype=I32, device=dev)]
-    grid = torch.empty((K, m), dtype=I32, device=dev)
-    mb = t_u8.shape[1]
-    in_turns(f'edit_stream kernel, main path K={K} m={m} e_pad={e_pad}',
-             'base', lambda: check(b_es(
-                 0, planes.data_ptr(), 0, 0, 0, 0, t_u8.data_ptr(),
-                 *ptrs(outs), grid.data_ptr(), K, m, mb, e_pad, stream())),
-             'this tree', lambda: check(n_es(
-                 0, 0, planes.data_ptr(), 0, 0, 0, 0, t_u8.data_ptr(),
-                 *ptrs(outs), 0, K, m, mb, e_pad, stream())),
-             True, results)
-
-    raw = [t.to(I32).contiguous() for t in rga_in[:3]] + \
-        [t.to(torch.bool).contiguous() for t in rga_in[3:]]
-    Kr, mr = raw[0].shape
-    f = rga_fns(raw)
-    o_b = rga_out(Kr, mr)
-    in_turns(f'rga_order kernel, main path K={Kr} m={mr}',
-             'base', lambda: check(b_rga(
-                 *ptrs(f['srt']), *ptrs(raw[3:]), *ptrs(o_b), 0, Kr, mr,
-                 f['rounds'], stream())),
-             'this tree', f['narrow_kernel'], True, results)
-
-    def base_step():
-        o, p, q = sequence._child_sort(rga_in[0], rga_in[1], rga_in[2],
-                                       rga_in[4])
-        o, p, q = (t.to(I32).contiguous() for t in (o, p, q))
-        out = rga_out(Kr, mr)
-        check(b_rga(o.data_ptr(), p.data_ptr(), q.data_ptr(),
-                    *ptrs(raw[3:]), *ptrs(out), 0, Kr, mr, f['rounds'],
-                    stream()))
-        return out
-    in_turns(f'rga_order step, main path K={Kr} m={mr}',
-             'base (sort + casts + kernel)', base_step,
-             'this tree (_rga_order_batched)',
-             lambda: sequence._rga_order_batched(*rga_in), False, results)
-
-    # ---- crossovers of this tree's variants ----
-    rng = np.random.default_rng(5)
-    for mw in (64, 128, 256, 512):
-        Kw = NODES // mw
-        raw = [torch.as_tensor(p).to(dev)
-               for p in chip_smoke.random_trees(rng, Kw, mw)]
-        f = rga_fns(raw)
-        w_launch = cuda_build.load('rga_order', 'rga_order_launch',
-                                   cuda_sequence._ARGTYPES)
-        in_turns(f'rga_order variants, kernel alone, K={Kw} m={mw}',
-                 'narrow', f['narrow_kernel'],
-                 'wide', lambda: f['wide_kernel'](w_launch), True, results)
-
-        def wide_step():
-            o, p, q = sequence._child_sort(raw[0], raw[1], raw[2], raw[4])
-            return cuda_sequence.order_from_sorted_cuda(
-                o.to(I32), p.to(I32), q.to(I32), raw[3], raw[4],
-                rounds=f['rounds'])
-        in_turns(f'rga_order variants, step, K={Kw} m={mw}',
-                 'narrow', lambda: cuda_sequence.rga_order_cuda(
-                     *raw, rounds=f['rounds']),
-                 'sort + wide', wide_step, False, results)
-    for mw in (64, 256, 512, 1024, 4096):
-        Kw = NODES // mw
-        _, _, _, _, tb, packed = chip_smoke.random_planes(rng, Kw, mw)
-        v = torch.as_tensor(packed).to(dev)
-        tu = torch.as_tensor(tb).to(dev)
-        in_turns(f'edit_stream variants, K={Kw} m={mw} e_pad=64',
-                 'warp', lambda: cuda_view.edit_stream_cuda(
-                     'packed', v, tu, 64, force='warp'),
-                 'block', lambda: cuda_view.edit_stream_cuda(
-                     'packed', v, tu, 64, force='block'), True, results)
-
+    if 'flatmap_resolve' in base:
+        ab_flatmap(args, base['flatmap_resolve'], results)
+    if 'rga_order' in base or 'edit_stream' in base:
+        ab_sequence(args, base, results)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as fh:
         json.dump(results, fh, indent=1)
