@@ -19,9 +19,11 @@
 //     clamped to e_pad); every other slot below e_pad holds -1
 //
 // The vis planes are decoded in the loads (the packed word
-// prior_vis<<31 | visible<<30 | (prior_idx+1)<<15 | (new_idx+1), or the
-// four cols planes), and touched is read straight from the np.packbits
-// plane (MSB first).
+// prior_vis<<31 | visible<<30 | (prior_idx+1)<<15 | (new_idx+1), the
+// wide format's two words prior_vis<<22 | (prior_idx+1) and
+// visible<<22 | (new_idx+1) — reference pallas_view.edit_stream_wide —
+// or the four cols planes), and touched is read straight from the
+// np.packbits plane (MSB first).
 //
 // Presence is a bitmask: for each class, ceil(m/32) words with bit
 // clamp(key, 0, m-1) set (atomicOr). Each word carries the exclusive
@@ -60,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_scan.cuh>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -67,6 +71,10 @@ constexpr int kSmemLimit = 200 * 1024;
 constexpr int kWarpMaxRows = 8;       // job rows (warps) per CTA
 constexpr int kBlock = 512;           // threads of the block variant
 constexpr int kNone = 3;              // class of a node in no class
+constexpr int kFmtPacked = 0;         // vis: the packed word plane
+constexpr int kFmtWide = 2;           // vis, nip: the two wide word planes
+constexpr uint32_t kWideIdxMask = (1u << 22) - 1u;
+constexpr int kWideVisShift = 22;
 
 __host__ __device__ inline int n_words(int m) { return (m + 31) >> 5; }
 
@@ -85,12 +93,19 @@ __device__ __forceinline__ int classify(int fmt, const int32_t* vis,
                                         int l, int* key) {
   bool pv, nv;
   int pi, ni;
-  if (fmt == 0) {
+  if (fmt == kFmtPacked) {
     const uint32_t v = static_cast<uint32_t>(__ldg(vis + off + l));
     pv = (v >> 31) & 1u;
     nv = (v >> 30) & 1u;
     pi = static_cast<int>((v >> 15) & 0x7FFFu) - 1;
     ni = static_cast<int>(v & 0x7FFFu) - 1;
+  } else if (fmt == kFmtWide) {
+    const uint32_t a = static_cast<uint32_t>(__ldg(vis + off + l));
+    const uint32_t b = static_cast<uint32_t>(__ldg(nip + off + l));
+    pv = (a >> kWideVisShift) & 1u;
+    nv = (b >> kWideVisShift) & 1u;
+    pi = static_cast<int>(a & kWideIdxMask) - 1;
+    ni = static_cast<int>(b & kWideIdxMask) - 1;
   } else {
     pv = __ldg(pvp + off + l) != 0;
     nv = __ldg(nvp + off + l) != 0;
@@ -381,12 +396,8 @@ int launch_warp(const Args& a) {
       std::min<size_t>(kWarpMaxRows, kSmemLimit / wbytes));
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wbytes * rows;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        es_warp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = opt_in_smem(es_warp_kernel<C>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (a.K + rows - 1) / rows;
   es_warp_kernel<C><<<grid, 32 * rows, smem, a.stream>>>(
       a.fmt, a.vis, a.pv, a.nv, a.pi, a.ni, a.touched, a.rm_idx, a.ins_node,
@@ -401,12 +412,8 @@ int launch_block(const Args& a, uint32_t* scratch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = use_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        es_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = opt_in_smem(es_block_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   es_block_kernel<<<a.K, kBlock, smem, a.stream>>>(
       a.fmt, a.vis, a.pv, a.nv, a.pi, a.ni, a.touched, a.rm_idx, a.ins_node,
       a.ins_idx, a.set_node, a.set_idx, a.cnt, scratch, a.m, a.mb, a.e_pad,
@@ -425,7 +432,9 @@ extern "C" int edit_stream_block_uses_smem(int m) {
 
 // C entry point (bound with ctypes). variant 0: one warp per row; 1: one
 // block per row. fmt 0: `vis` is the packed int32 [K, m] word plane;
-// fmt 1: pv/nv are uint8 (bool) and pi/ni int32 [K, m] planes. touched is
+// fmt 1: pv/nv are uint8 (bool) and pi/ni int32 [K, m] planes; fmt 2 (the
+// wide format): `vis` is the int32 [K, m] prior word plane and `ni` the
+// new word plane (pv, nv and pi are unused). touched is
 // uint8 [K, mb] (mb = ceil(m / 8)). Outputs are int32 [K, e_pad] x 5 and
 // [K, 3]; scratch is null unless the block variant needs it. Returns the
 // CUDA error of the launch (0 on success).

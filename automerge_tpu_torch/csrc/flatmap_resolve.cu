@@ -64,6 +64,8 @@
 
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kSmemLimit = 200 * 1024;
@@ -399,22 +401,14 @@ bool aligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & (ALIGN - 1)) == 0;
 }
 
-template <typename F>
-int set_smem(F* fn, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
 int launch_warp(const Args& a) {
   const size_t wb = warp_slice_bytes(a.N, a.S, a.A);
   const int rows = static_cast<int>(std::min<size_t>(
       kWarpDocs, static_cast<size_t>(kSmemLimit) / wb));
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wb * rows;
-  const int err = set_smem(fm_warp_kernel, smem);
-  if (err) return err;
+  const cudaError_t e = opt_in_smem(fm_warp_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int vec_ops = a.N % 4 == 0 && aligned<16>(a.seg_id) &&
                       aligned<16>(a.actor) && aligned<16>(a.seq) &&
                       aligned<4>(a.is_del) && aligned<4>(a.valid) &&
@@ -430,8 +424,8 @@ int launch_warp(const Args& a) {
 template <int BLOCK>
 int launch_block(const Args& a, int32_t* scratch, int use_smem) {
   const size_t smem = use_smem ? block_slot_bytes(a.S, a.A) : 0;
-  const int err = set_smem(fm_block_kernel<BLOCK>, smem);
-  if (err) return err;
+  const cudaError_t e = opt_in_smem(fm_block_kernel<BLOCK>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   fm_block_kernel<BLOCK><<<a.D, BLOCK, smem, a.stream>>>(
       a.seg_id, a.actor, a.seq, a.clock, a.is_del, a.valid, a.surviving,
       a.winner, a.seg_max_actor, scratch, a.N, a.S, a.A, use_smem);

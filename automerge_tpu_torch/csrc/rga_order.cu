@@ -57,6 +57,21 @@
 // and writes every output once, coalesced. Nothing goes through global
 // scratch.
 //
+// Delta mode (rga_delta_launch, the same narrow kernel with an anchor
+// plane): the delta orderer behind the incremental index update
+// (sequence._rga_delta_order_batched; the JAX package's
+// automerge_tpu/device/sequence.py:252-300). Slot 0 stands in for the
+// whole existing tree and a child of it carries its anchor, the old tree
+// position of its real parent; the sort key gains that anchor as a word
+// between parent_adj and elem: (parent_adj asc, anchor_k asc, elem desc,
+// actor desc, index asc), anchor_k = anchor for children of slot 0, else
+// 0. An anchor reaches 2^22 - 1 and an elem is a full int32 on the wide
+// mirror, so the packed keys take the anchor's span as one more field
+// and fall back to the two-word full key (parent_adj, anchor_k) and
+// (elem, actor) when the spans do not fit 63 bits. Only tree_pos is read
+// by the caller; the visibility outputs are computed with visible =
+// valid. A null anchor is the rebuild's order, bit for bit.
+//
 // Wide variant (rga_order_kernel, any m, after a torch child sort): one
 // thread block per job row, four planes of m+1 words with one
 // __syncthreads per doubling round, a CUB block scan in chunks with a
@@ -73,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -245,12 +262,8 @@ int launch(const int32_t* order, const int32_t* parent_adj,
   const size_t bytes = 4 * plane_words(m) * 4;
   const int use_smem = bytes <= static_cast<size_t>(kSmemLimit);
   const size_t smem = use_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rga_order_kernel<BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = opt_in_smem(rga_order_kernel<BLOCK>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   rga_order_kernel<BLOCK><<<K, BLOCK, smem, stream>>>(
       order, parent_adj, parent, visible, valid, tree_pos, vis_index,
       node_at_pos, length, scratch, m, rounds, use_smem);
@@ -277,26 +290,33 @@ __host__ __device__ inline size_t narrow_warp_bytes(int m) {
                  4 * plane_words(m) * 4);
 }
 
-// The full sort key as two u64 words, ordered as (parent_adj asc, elem
-// desc, actor desc, index asc) is: the signed values map
-// order-preservingly to unsigned (x ^ 0x80000000), descending ones are
-// complemented, so no negation can wrap.
-__device__ __forceinline__ uint64_t key_hi(int padj, int elem) {
+// The full sort key as two u64 words, ordered as (parent_adj asc,
+// anchor_k asc) then (elem desc, actor desc), with the index as the last
+// tie-break: the signed values map order-preservingly to unsigned
+// (x ^ 0x80000000), descending ones are complemented, so no negation can
+// wrap.
+__device__ __forceinline__ uint64_t key_hi(int padj, int ak) {
   return (static_cast<uint64_t>(static_cast<uint32_t>(padj) ^ 0x80000000u)
           << 32) |
-         static_cast<uint64_t>(~(static_cast<uint32_t>(elem) ^ 0x80000000u));
+         static_cast<uint64_t>(static_cast<uint32_t>(ak) ^ 0x80000000u);
 }
-__device__ __forceinline__ uint64_t key_lo(int actor, int i) {
-  return (static_cast<uint64_t>(~(static_cast<uint32_t>(actor) ^
+__device__ __forceinline__ uint64_t key_lo(int elem, int actor) {
+  return (static_cast<uint64_t>(~(static_cast<uint32_t>(elem) ^
                                   0x80000000u))
           << 32) |
-         static_cast<uint32_t>(i);
+         static_cast<uint64_t>(~(static_cast<uint32_t>(actor) ^ 0x80000000u));
 }
 
+// (parent_adj, anchor_k - kmin, emax - elem, amax - actor) packed into
+// fields of (the row's parent_adj bits), bk, be and ba bits.
 template <typename Key>
-__device__ __forceinline__ Key pack_key(int padj, int elem, int actor,
-                                        int emax, int amax, int be, int ba) {
-  return (static_cast<Key>(padj) << (be + ba)) |
+__device__ __forceinline__ Key pack_key(int padj, int ak, int elem,
+                                        int actor, int kmin, int emax,
+                                        int amax, int bk, int be, int ba) {
+  return (static_cast<Key>(padj) << (bk + be + ba)) |
+         (static_cast<Key>(static_cast<uint32_t>(ak) -
+                           static_cast<uint32_t>(kmin))
+          << (be + ba)) |
          (static_cast<Key>(static_cast<uint32_t>(emax) -
                            static_cast<uint32_t>(elem))
           << ba) |
@@ -305,11 +325,11 @@ __device__ __forceinline__ Key pack_key(int padj, int elem, int actor,
 }
 
 // slot[t] = number of nodes whose full key is smaller than node
-// 32t + lane's (128-bit compares: any values).
+// i = 32t + lane's (128-bit compares, then the index: any values).
 template <int C>
 __device__ __forceinline__ void rank_full(const uint64_t* khi,
                                           const uint64_t* klo, int n,
-                                          const uint64_t (&hi)[C],
+                                          int lane, const uint64_t (&hi)[C],
                                           const uint64_t (&lo)[C],
                                           int (&slot)[C]) {
   for (int j = 0; j < n; ++j) {
@@ -317,7 +337,9 @@ __device__ __forceinline__ void rank_full(const uint64_t* khi,
     const uint64_t lj = klo[j];
 #pragma unroll
     for (int t = 0; t < C; ++t) {
-      slot[t] += (hj < hi[t]) | ((hj == hi[t]) & (lj < lo[t]));
+      slot[t] += (hj < hi[t]) |
+                 ((hj == hi[t]) &
+                  ((lj < lo[t]) | ((lj == lo[t]) & (j < 32 * t + lane))));
     }
   }
 }
@@ -398,6 +420,7 @@ __global__ void __launch_bounds__(32 * kNarrowMaxRows)
 rga_narrow_kernel(const int32_t* __restrict__ parent,
                   const int32_t* __restrict__ elem,
                   const int32_t* __restrict__ actor,
+                  const int32_t* __restrict__ anchor,
                   const uint8_t* __restrict__ visible,
                   const uint8_t* __restrict__ valid,
                   int32_t* __restrict__ tree_pos,
@@ -436,14 +459,15 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
   stage_bytes(valid + off, val_s, n, lane);
   __syncwarp();
 
-  int par[C], padj[C], el[C], ac[C];
+  int par[C], padj[C], ak[C], el[C], ac[C];
   bool vis[C], val[C];
   int pmin = INT32_MAX, pmax = INT32_MIN, emin = INT32_MAX;
   int emax = INT32_MIN, amin = INT32_MAX, amax = INT32_MIN;
+  int kmin = INT32_MAX, kmax = INT32_MIN;
 #pragma unroll
   for (int t = 0; t < C; ++t) {
     const int i = 32 * t + lane;
-    par[t] = padj[t] = el[t] = ac[t] = 0;
+    par[t] = padj[t] = ak[t] = el[t] = ac[t] = 0;
     vis[t] = val[t] = false;
     if (i < n) {
       par[t] = P2[i];
@@ -454,8 +478,12 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
       // the head (node 0) is nobody's child: bucket it with the padding
       padj[t] = (val[t] && i != 0) ? par[t] : n;
       pa[i] = padj[t];
+      // delta mode: a child of slot 0 sorts by its anchor first
+      if (anchor != nullptr && padj[t] == 0) ak[t] = __ldg(anchor + off + i);
       pmin = min(pmin, padj[t]);
       pmax = max(pmax, padj[t]);
+      kmin = min(kmin, ak[t]);
+      kmax = max(kmax, ak[t]);
       emin = min(emin, el[t]);
       emax = max(emax, el[t]);
       amin = min(amin, ac[t]);
@@ -464,21 +492,27 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
   }
   pmin = __reduce_min_sync(kFull, pmin);
   pmax = __reduce_max_sync(kFull, pmax);
+  kmin = __reduce_min_sync(kFull, kmin);
+  kmax = __reduce_max_sync(kFull, kmax);
   emin = __reduce_min_sync(kFull, emin);
   emax = __reduce_max_sync(kFull, emax);
   amin = __reduce_min_sync(kFull, amin);
   amax = __reduce_max_sync(kFull, amax);
 
   // ---- 0. child sort: slot = number of nodes that sort before ----
-  // The row's key packs order-preservingly into parent_adj << (be + ba) |
-  // (emax - elem) << ba | (amax - actor), where be and ba are the bits
-  // of the elem and actor spans: into a u32 when that needs at most 31
-  // bits (the main path's rows), a u64 up to 63, else the full key.
+  // The row's key packs order-preservingly into parent_adj << (bk + be +
+  // ba) | (anchor_k - kmin) << (be + ba) | (emax - elem) << ba | (amax -
+  // actor), where bk, be and ba are the bits of the anchor, elem and
+  // actor spans (bk = 0 without an anchor plane): into a u32 when that
+  // needs at most 31 bits (the main path's rows), a u64 up to 63, else
+  // the full key.
+  const int bk = 32 - __clz(static_cast<uint32_t>(kmax) -
+                            static_cast<uint32_t>(kmin));
   const int ba = 32 - __clz(static_cast<uint32_t>(amax) -
                             static_cast<uint32_t>(amin));
   const int be = 32 - __clz(static_cast<uint32_t>(emax) -
                             static_cast<uint32_t>(emin));
-  const int bits = pmin < 0 ? 64 : 32 - __clz(pmax) + be + ba;
+  const int bits = pmin < 0 ? 64 : 32 - __clz(pmax) + bk + be + ba;
   int slot[C];
 #pragma unroll
   for (int t = 0; t < C; ++t) slot[t] = 0;
@@ -487,7 +521,8 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
 #pragma unroll
     for (int t = 0; t < C; ++t) {
       const int i = 32 * t + lane;
-      key[t] = pack_key<uint32_t>(padj[t], el[t], ac[t], emax, amax, be, ba);
+      key[t] = pack_key<uint32_t>(padj[t], ak[t], el[t], ac[t], kmin, emax,
+                                  amax, bk, be, ba);
       if (i < n) reinterpret_cast<uint32_t*>(khi)[i] = key[t];
     }
     __syncwarp();
@@ -498,7 +533,8 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
 #pragma unroll
     for (int t = 0; t < C; ++t) {
       const int i = 32 * t + lane;
-      key[t] = pack_key<uint64_t>(padj[t], el[t], ac[t], emax, amax, be, ba);
+      key[t] = pack_key<uint64_t>(padj[t], ak[t], el[t], ac[t], kmin, emax,
+                                  amax, bk, be, ba);
       if (i < n) khi[i] = key[t];
     }
     __syncwarp();
@@ -508,15 +544,15 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
 #pragma unroll
     for (int t = 0; t < C; ++t) {
       const int i = 32 * t + lane;
-      hi[t] = key_hi(padj[t], el[t]);
-      lo[t] = key_lo(ac[t], i);
+      hi[t] = key_hi(padj[t], ak[t]);
+      lo[t] = key_lo(el[t], ac[t]);
       if (i < n) {
         khi[i] = hi[t];
         klo[i] = lo[t];
       }
     }
     __syncwarp();
-    rank_full<C>(khi, klo, n, hi, lo, slot);
+    rank_full<C>(khi, klo, n, lane, hi, lo, slot);
   }
 #pragma unroll
   for (int t = 0; t < C; ++t) {
@@ -697,7 +733,8 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
 
 template <int C>
 int launch_narrow(const int32_t* parent, const int32_t* elem,
-                  const int32_t* actor, const uint8_t* visible,
+                  const int32_t* actor, const int32_t* anchor,
+                  const uint8_t* visible,
                   const uint8_t* valid, int32_t* tree_pos,
                   int32_t* vis_index, int32_t* node_at_pos, int32_t* length,
                   int K, int m, int rounds, cudaStream_t stream) {
@@ -705,17 +742,42 @@ int launch_narrow(const int32_t* parent, const int32_t* elem,
   const int rows = static_cast<int>(
       std::min<size_t>(kNarrowMaxRows, kSmemLimit / wbytes));
   const size_t smem = wbytes * rows;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rga_narrow_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = opt_in_smem(rga_narrow_kernel<C>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (K + rows - 1) / rows;
   rga_narrow_kernel<C><<<grid, 32 * rows, smem, stream>>>(
-      parent, elem, actor, visible, valid, tree_pos, vis_index, node_at_pos,
-      length, K, m, rounds, static_cast<int>(wbytes));
+      parent, elem, actor, anchor, visible, valid, tree_pos, vis_index,
+      node_at_pos, length, K, m, rounds, static_cast<int>(wbytes));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow variant's dispatch on C = ceil(m / 32), rounded up to a
+// power of two; anchor null is the rebuild's order.
+int narrow_dispatch(const void* parent, const void* elem, const void* actor,
+                    const void* anchor, const void* visible,
+                    const void* valid, void* tree_pos, void* vis_index,
+                    void* node_at_pos, void* length, int K, int m,
+                    int rounds, void* stream) {
+  if (K <= 0) return 0;
+  if (m < 1 || m > kNarrowMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto launcher) {
+    return launcher(static_cast<const int32_t*>(parent),
+                    static_cast<const int32_t*>(elem),
+                    static_cast<const int32_t*>(actor),
+                    static_cast<const int32_t*>(anchor),
+                    static_cast<const uint8_t*>(visible),
+                    static_cast<const uint8_t*>(valid),
+                    static_cast<int32_t*>(tree_pos),
+                    static_cast<int32_t*>(vis_index),
+                    static_cast<int32_t*>(node_at_pos),
+                    static_cast<int32_t*>(length), K, m, rounds,
+                    static_cast<cudaStream_t>(stream));
+  };
+  if (m <= 32) return args(launch_narrow<1>);
+  if (m <= 64) return args(launch_narrow<2>);
+  if (m <= 128) return args(launch_narrow<4>);
+  if (m <= 256) return args(launch_narrow<8>);
+  return args(launch_narrow<16>);
 }
 
 }  // namespace
@@ -767,23 +829,23 @@ extern "C" int rga_narrow_launch(const void* parent, const void* elem,
                                  void* vis_index, void* node_at_pos,
                                  void* length, int K, int m, int rounds,
                                  void* stream) {
-  if (K <= 0) return 0;
-  if (m < 1 || m > kNarrowMaxM) return static_cast<int>(cudaErrorInvalidValue);
-  auto args = [&](auto launcher) {
-    return launcher(static_cast<const int32_t*>(parent),
-                    static_cast<const int32_t*>(elem),
-                    static_cast<const int32_t*>(actor),
-                    static_cast<const uint8_t*>(visible),
-                    static_cast<const uint8_t*>(valid),
-                    static_cast<int32_t*>(tree_pos),
-                    static_cast<int32_t*>(vis_index),
-                    static_cast<int32_t*>(node_at_pos),
-                    static_cast<int32_t*>(length), K, m, rounds,
-                    static_cast<cudaStream_t>(stream));
-  };
-  if (m <= 32) return args(launch_narrow<1>);
-  if (m <= 64) return args(launch_narrow<2>);
-  if (m <= 128) return args(launch_narrow<4>);
-  if (m <= 256) return args(launch_narrow<8>);
-  return args(launch_narrow<16>);
+  return narrow_dispatch(parent, elem, actor, nullptr, visible, valid,
+                         tree_pos, vis_index, node_at_pos, length, K, m,
+                         rounds, stream);
+}
+
+// C entry point of the delta mode (bound with ctypes): the delta planes
+// parent/anchor/elem/actor int32 [K, m] and valid uint8 (bool) [K, m],
+// m <= 512; the narrow variant's outputs, of which the caller reads
+// tree_pos (the visibility outputs take visible = valid). Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int rga_delta_launch(const void* parent, const void* anchor,
+                                const void* elem, const void* actor,
+                                const void* valid, void* tree_pos,
+                                void* vis_index, void* node_at_pos,
+                                void* length, int K, int m, int rounds,
+                                void* stream) {
+  return narrow_dispatch(parent, elem, actor, anchor, valid, valid,
+                         tree_pos, vis_index, node_at_pos, length, K, m,
+                         rounds, stream);
 }

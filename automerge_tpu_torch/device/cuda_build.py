@@ -40,16 +40,23 @@ def source(name):
     return os.path.join(_CSRC_DIR, f'{name}.cu')
 
 
+def headers():
+    """The headers the kernel sources share (``csrc/*.cuh``)."""
+    return [os.path.join(_CSRC_DIR, f) for f in sorted(os.listdir(_CSRC_DIR))
+            if f.endswith('.cuh')]
+
+
 def build(name, force=False):
     """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so`` unless a
-    build newer than the source exists (or ``force``); returns the
-    library's path. Raises ``RuntimeError`` with nvcc's output when the
-    build fails."""
+    build newer than the source and the shared headers exists (or
+    ``force``); returns the library's path. Raises ``RuntimeError`` with
+    nvcc's output when the build fails."""
     src = source(name)
     so = os.path.join(BUILD_DIR, f'lib{name}.so')
     os.makedirs(BUILD_DIR, exist_ok=True)
     if not force and os.path.exists(so) and \
-            os.path.getmtime(so) >= os.path.getmtime(src):
+            os.path.getmtime(so) >= max(map(os.path.getmtime,
+                                            (src, *headers()))):
         return so
     tmp = f'{so}.tmp.{os.getpid()}.{threading.get_ident()}'
     cmd = [_nvcc(), *_NVCC_FLAGS, '-o', tmp, src]

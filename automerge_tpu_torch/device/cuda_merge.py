@@ -53,9 +53,11 @@ N_WARP_SCALAR = 512
 # the shared memory a CTA of either variant may use
 _SMEM_LIMIT = 200 * 1024
 
-# launches of the CUDA kernel since the last reset (one per launch, in
-# resolve_cuda only) — the proof that a run went through the kernel
-launches = 0
+# launches of the CUDA kernel since the last reset by (mode, variant):
+# mode 'resolve' (the kernel's one mode), variant as :func:`variant`
+# names it; counted in resolve_cuda where the kernel launches and
+# nowhere else — the proof that a run went through it
+launches = {}
 # the variant of the latest launch ('warp', 'block' or 'block-global')
 last_variant = None
 
@@ -69,9 +71,9 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
 
 
 def reset_launches():
-    global launches, last_variant
-    launches = 0
+    global last_variant
     last_variant = None
+    launches.clear()
 
 
 def warp_slice_bytes(N, S, A):
@@ -118,7 +120,7 @@ def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
     Bound: per call the kernel must read ``D*N*(14 + 4*A)`` bytes and
     write ``D*N + 8*D*S`` bytes, with O(D*N*A) integer maxima — bound by
     memory traffic."""
-    global launches, last_variant
+    global last_variant
     D, N = seg_id.shape
     dev = seg_id.device
     if dev.type != 'cuda':
@@ -156,8 +158,8 @@ def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
     if err != 0:
         raise RuntimeError(f'flatmap_resolve kernel launch failed ({var} '
                            f'variant): CUDA error {err}')
-    launches += 1
     last_variant = var
+    launches['resolve', var] = launches.get(('resolve', var), 0) + 1
     return out
 
 

@@ -21,10 +21,17 @@ ctypes; :func:`variant` says which one a width takes:
   one thread block per job row, from the permutation of a PyTorch
   stable child sort (``sequence._child_sort``). Its plain version is
   ``sequence._order_from_sorted_plain``.
+* :func:`rga_delta_cuda` — the delta mode of the narrow variant, behind
+  the incremental index update: the same kernel over one tick's delta
+  forest, with the anchor plane as one more sort key word between the
+  parent and the elem. Its plain version is
+  ``sequence._rga_delta_order_plain``; wider delta planes take the
+  PyTorch sort with the anchor key and the wide variant.
 
-``sequence._rga_order_batched`` launches one of them for every CUDA
-tensor (raising if the build or the launch fails — there is no
-fallback) and runs the plain version only for tensors on the CPU.
+``sequence._rga_order_batched`` and ``sequence._rga_delta_order_batched``
+launch one of them for every CUDA tensor (raising if the build or the
+launch fails — there is no fallback) and run the plain version only for
+tensors on the CPU.
 """
 
 import ctypes
@@ -40,10 +47,12 @@ _I32 = torch.int32
 # own limit of 512 nodes (a lane's 16 register slots; PERF.md)
 M_NARROW = 512
 
-# launches of the CUDA kernels since the last reset (one per launch, in
-# rga_order_cuda and order_from_sorted_cuda only) — the proof that a run
-# went through them
-launches = 0
+# launches of the CUDA kernels since the last reset by (mode, variant):
+# mode 'order' (rga_order_cuda, order_from_sorted_cuda) or 'delta'
+# (rga_delta_cuda), variant as :func:`variant` names it; counted where a
+# kernel launches and nowhere else — the proof that a run went through
+# them
+launches = {}
 # the variant of the latest launch ('narrow', 'wide' or 'wide-global')
 last_variant = None
 
@@ -54,12 +63,21 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # length, K, m, rounds, stream
 _NARROW_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
     [ctypes.c_void_p]
+# parent, anchor, elem, actor, valid, tree_pos, vis_index, node_at_pos,
+# length, K, m, rounds, stream
+_DELTA_ARGTYPES = _NARROW_ARGTYPES
 
 
 def reset_launches():
-    global launches, last_variant
-    launches = 0
+    global last_variant
     last_variant = None
+    launches.clear()
+
+
+def _count(mode, v):
+    global last_variant
+    last_variant = v
+    launches[mode, v] = launches.get((mode, v), 0) + 1
 
 
 def uses_global_scratch(m):
@@ -71,9 +89,10 @@ def uses_global_scratch(m):
 
 
 def variant(m):
-    """The kernel variant ``sequence._rga_order_batched`` takes at width
-    ``m`` on the card: ``'narrow'`` up to :data:`M_NARROW` nodes, else
-    ``'wide'``, or ``'wide-global'`` past the shared-memory cap."""
+    """The kernel variant ``sequence._rga_order_batched`` and
+    ``sequence._rga_delta_order_batched`` take at width ``m`` on the
+    card: ``'narrow'`` up to :data:`M_NARROW` nodes, else ``'wide'``, or
+    ``'wide-global'`` past the shared-memory cap."""
     if m <= M_NARROW:
         return 'narrow'
     return 'wide-global' if uses_global_scratch(m) else 'wide'
@@ -98,7 +117,6 @@ def rga_order_cuda(parent, elem, actor, visible, valid, rounds):
     ``K*m*12 + K*4`` bytes; each row's chain of O(m log m) dependent
     shared-memory steps (and its m^2/32 compares a lane for the sort)
     sets the time at the main path's width."""
-    global launches, last_variant
     K, m = parent.shape
     dev = parent.device
     if dev.type != 'cuda':
@@ -123,9 +141,48 @@ def rga_order_cuda(parent, elem, actor, visible, valid, rounds):
     if err != 0:
         raise RuntimeError(f'rga_order narrow kernel launch failed: CUDA '
                            f'error {err}')
-    launches += 1
-    last_variant = 'narrow'
+    _count('order', 'narrow')
     return out
+
+
+def rga_delta_cuda(parent, anchor, elem, actor, valid, rounds):
+    """Launch the narrow RGA kernel in its delta mode on contiguous CUDA
+    [K, m] delta planes (m <= :data:`M_NARROW`): int32 ``parent``,
+    ``anchor``, ``elem``, ``actor`` and bool ``valid``. Returns int32
+    ``tree_pos`` [K, m], equal to ``sequence._rga_delta_order_plain`` on
+    the valid rows (the rest is padding, which no caller reads).
+
+    Bound: per call the kernel must read ``K*m*17`` bytes and write
+    ``K*m*4`` (the tree positions; it also writes the visibility
+    outputs, ``K*m*8 + K*4`` bytes, which the caller drops); a delta
+    plane is a few dozen nodes wide, so each row's chain of dependent
+    shared-memory steps sets the time."""
+    K, m = parent.shape
+    dev = parent.device
+    if dev.type != 'cuda':
+        raise ValueError('rga_delta_cuda needs CUDA tensors')
+    if not 1 <= m <= M_NARROW or rounds < 1:
+        raise ValueError(f'bad delta RGA shape m={m} rounds={rounds}')
+    for t, name in ((parent, 'parent'), (anchor, 'anchor'), (elem, 'elem'),
+                    (actor, 'actor')):
+        cuda_build.check(t, name, _I32, (K, m), dev)
+    cuda_build.check(valid, 'valid', torch.bool, (K, m), dev)
+    out = _outputs(K, m, dev)
+    if K == 0:                  # no job rows: nothing to launch
+        return out['tree_pos']
+    fn = cuda_build.load('rga_order', 'rga_delta_launch', _DELTA_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(parent.data_ptr(), anchor.data_ptr(), elem.data_ptr(),
+                 actor.data_ptr(), valid.data_ptr(),
+                 out['tree_pos'].data_ptr(), out['vis_index'].data_ptr(),
+                 out['node_at_pos'].data_ptr(), out['length'].data_ptr(),
+                 K, m, rounds, stream)
+    if err != 0:
+        raise RuntimeError(f'rga_order delta kernel launch failed: CUDA '
+                           f'error {err}')
+    _count('delta', 'narrow')
+    return out['tree_pos']
 
 
 def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
@@ -135,13 +192,13 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
     at m) and ``parent``, bool ``visible``/``valid``. ``rounds`` is the
     doubling round count. Returns the plain version's dict of int32
     ``tree_pos``, ``vis_index``, ``node_at_pos`` [K, m] and ``length``
-    [K].
+    [K]. The delta orderer's wide rows launch it too (their sort carried
+    the anchor key; only ``tree_pos`` is read).
 
     Bound: per call the kernel must read ``K*m*14`` bytes and write
     ``K*m*12 + K*4`` bytes; its O(K*m*log m) pointer-doubling loads stay
     in shared memory up to m = 12,799 — memory- and launch-bound at the
     main path's widths."""
-    global launches, last_variant
     K, m = order.shape
     dev = order.device
     if dev.type != 'cuda':
@@ -170,6 +227,5 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
     if err != 0:
         raise RuntimeError(f'rga_order kernel launch failed: CUDA error '
                            f'{err}')
-    launches += 1
-    last_variant = 'wide-global' if scratch is not None else 'wide'
+    _count('order', 'wide-global' if scratch is not None else 'wide')
     return out

@@ -12,10 +12,11 @@ delta-sized buffers instead of the full O(doc) vis planes.
 
 Two implementations, bit-identical by construction:
 
-* :func:`edit_stream` / :func:`edit_stream_packed` — the plain PyTorch
-  version (scatter + cumsum + gather). It is the specification, the CPU
-  path of :func:`dispatch_edit_stream`, and what ``chip_smoke.py``
-  holds the kernel against on the card.
+* :func:`edit_stream` / :func:`edit_stream_packed` /
+  :func:`edit_stream_wide` — the plain PyTorch version (scatter + cumsum
+  + gather) over the cols, packed and wide vis formats. It is the
+  specification, the CPU path of :func:`dispatch_edit_stream`, and what
+  ``chip_smoke.py`` holds the kernel against on the card.
 * :func:`edit_stream_cuda` — the hand-written CUDA kernel
   (``csrc/edit_stream.cu``), built with nvcc for ``sm_90a`` on first use
   into ``_build/`` and bound with ctypes. It replaces the TPU kernel
@@ -32,8 +33,8 @@ Two implementations, bit-identical by construction:
 
 :func:`dispatch_edit_stream` launches the kernel for every CUDA tensor
 (raising if the build or the launch fails — there is no fallback) and
-runs the plain version only for tensors on the CPU. The wide vis format
-belongs to the wide-mirror slice and is not ported yet (ROADMAP A.4).
+runs the plain version only for tensors on the CPU. A long text (the
+wide format, one row of m > 512 nodes) takes the block variant.
 """
 
 import ctypes
@@ -48,19 +49,23 @@ _I32 = torch.int32
 _W2_ELEM = 0x7FFF
 _W2_VIS_SHIFT = 30
 _W2_IDX_SHIFT = 15
+_WIDE_IDX_MASK = (1 << 22) - 1
+_WIDE_VIS_SHIFT = 22
 
 # rows up to this many nodes take the warp-per-row variant, wider rows
 # the block-per-row one (the crossover measured on an H100: PERF.md)
 M_WARP_ES = 512
 
-# launches of the CUDA kernel since the last reset (one per launch, in
-# edit_stream_cuda only) — the proof that a run went through the kernel
-launches = 0
+# launches of the CUDA kernel since the last reset by (mode, variant):
+# mode the vis format ('packed', 'wide' or 'cols'), variant as
+# :func:`variant` names it; counted in edit_stream_cuda where the kernel
+# launches and nowhere else — the proof that a run went through it
+launches = {}
 # the variant of the latest launch ('warp', 'block' or 'block-global')
 last_variant = None
 
 # input formats and variants of the kernel's C entry point
-_FMT_PACKED, _FMT_COLS = 0, 1
+_FMT_PACKED, _FMT_COLS, _FMT_WIDE = 0, 1, 2
 _VARIANT_WARP, _VARIANT_BLOCK = 0, 1
 
 # variant, fmt, 5 input planes, touched, 5 outputs, cnt, scratch, K, m,
@@ -70,9 +75,9 @@ _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
 
 
 def reset_launches():
-    global launches, last_variant
-    launches = 0
+    global last_variant
     last_variant = None
+    launches.clear()
 
 
 def variant(m, force=None):
@@ -164,9 +169,26 @@ def edit_stream_packed(vis_packed, touched_u8, *, e_pad):
     return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
 
 
+def _decode_wide(vis_prior, vis_new):
+    pv = ((vis_prior >> _WIDE_VIS_SHIFT) & 1).to(torch.bool)
+    nv = ((vis_new >> _WIDE_VIS_SHIFT) & 1).to(torch.bool)
+    pi = (vis_prior & _WIDE_IDX_MASK) - 1
+    ni = (vis_new & _WIDE_IDX_MASK) - 1
+    return pv, nv, pi, ni
+
+
+def edit_stream_wide(vis_prior, vis_new, touched_u8, *, e_pad):
+    """Plain edit stream over the wide apply's two vis word planes
+    (``visible << 22 | (idx + 1)`` each)."""
+    m = vis_prior.shape[1]
+    pv, nv, pi, ni = _decode_wide(vis_prior.to(_I32), vis_new.to(_I32))
+    return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
+
+
 def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     """Launch the CUDA edit-stream kernel on one apply's vis planes:
     ``vis_fmt='packed'`` takes the int32 [K, m] vis word plane,
+    ``'wide'`` the (vis_prior, vis_new) int32 [K, m] word planes,
     ``'cols'`` the (prior_vis bool, visible bool, prior_idx int32,
     new_idx int32) [K, m] planes. ``touched_u8`` is the uint8
     [K, ceil(m/8)] packbits plane. Returns the same six int32 tensors as
@@ -175,10 +197,12 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     :func:`variant`).
 
     Bound: per call the kernel must read ``K*m*4 + K*ceil(m/8)`` bytes
-    (packed) and write ``5*K*e_pad*4 + 12*K`` bytes; it does O(K*m)
-    integer work, so it is bound by memory traffic and latency, not
-    arithmetic."""
-    global launches, last_variant
+    (packed; ``K*m*8 + K*ceil(m/8)`` wide) and write
+    ``5*K*e_pad*4 + 12*K`` bytes; it does O(K*m) integer work, so it is
+    bound by memory traffic and latency, not arithmetic. A long text's
+    one row runs on one thread block, so one SM: far from the card's
+    byte rate."""
+    global last_variant
     if vis_fmt == 'packed':
         v = planes
         K, m = v.shape
@@ -186,6 +210,14 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
         cuda_build.check(v, 'vis_packed', _I32, (K, m), dev)
         ptrs = [v.data_ptr(), 0, 0, 0, 0]
         fmt = _FMT_PACKED
+    elif vis_fmt == 'wide':
+        vp, vn = planes
+        K, m = vp.shape
+        dev = vp.device
+        cuda_build.check(vp, 'vis_prior', _I32, (K, m), dev)
+        cuda_build.check(vn, 'vis_new', _I32, (K, m), dev)
+        ptrs = [vp.data_ptr(), 0, 0, 0, vn.data_ptr()]
+        fmt = _FMT_WIDE
     elif vis_fmt == 'cols':
         pv, nv, pi, ni = planes
         K, m = pv.shape
@@ -198,9 +230,7 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
                 ni.data_ptr()]
         fmt = _FMT_COLS
     else:
-        raise NotImplementedError(
-            f'edit stream over the {vis_fmt!r} vis format is not ported '
-            'yet (wide mirror: ROADMAP A.4)')
+        raise ValueError(f'unknown vis format {vis_fmt!r}')
     if dev.type != 'cuda':
         raise ValueError('edit_stream_cuda needs CUDA tensors')
     mb = (m + 7) >> 3
@@ -228,8 +258,8 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     if err != 0:
         raise RuntimeError(f'edit_stream kernel launch failed ({var} '
                            f'variant): CUDA error {err}')
-    launches += 1
     last_variant = var
+    launches[vis_fmt, var] = launches.get((vis_fmt, var), 0) + 1
     return (*outs, cnt)
 
 
@@ -244,15 +274,15 @@ def dispatch_edit_stream(vis_fmt, planes, touched_u8, e_pad):
     t_u8 = torch.as_tensor(np.ascontiguousarray(touched_u8),
                            dtype=torch.uint8).to(dev)
     if dev.type == 'cuda':
-        if vis_fmt == 'cols':
-            planes = tuple(p.contiguous() for p in planes)
-        else:
+        if vis_fmt == 'packed':
             planes = planes.contiguous()
+        else:
+            planes = tuple(p.contiguous() for p in planes)
         return edit_stream_cuda(vis_fmt, planes, t_u8, e_pad)
     if vis_fmt == 'packed':
         return edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    if vis_fmt == 'wide':
+        return edit_stream_wide(*planes, t_u8, e_pad=e_pad)
     if vis_fmt == 'cols':
         return edit_stream(*planes, t_u8, e_pad=e_pad)
-    raise NotImplementedError(
-        f'edit stream over the {vis_fmt!r} vis format is not ported yet '
-        '(wide mirror: ROADMAP A.4)')
+    raise ValueError(f'unknown vis format {vis_fmt!r}')

@@ -56,14 +56,14 @@ host staging (admission, the pool, the native stager, the wire buffer)
 is the JAX package's code, copied; the device programs are PyTorch
 functions on the store's ``device`` (CUDA unless the caller asks for
 the CPU), and the patch read's edit stream runs the hand-written CUDA
-kernel of :mod:`.cuda_view` on the card. This slice ports the packed
-and cols mirror formats with the whole-object REBUILD of every dirty
-sequence: ``_INDEX_MODE=None`` takes the rebuild arm (the reference's
-own parity suite pins its incremental update equal to the rebuild, so
-the outputs are the same), and ``'require'`` raises. The wide mirror and
-``_mirror_convert``, the incremental index and suffix window, and the
-async apply are not ported yet (ROADMAP A.4); each raises
-``NotImplementedError`` where the reference would take it.
+kernel of :mod:`.cuda_view` on the card. All three mirror formats are
+ported (packed, wide and cols, converted in place when a store crosses
+a format bound), with both order updates: the whole-object REBUILD of a
+dirty sequence (the RGA kernel) and the INCREMENTAL index update of the
+persistent 'tp' plane (the RGA kernel's delta mode), optionally bounded
+to a suffix window; ``_INDEX_MODE`` and ``_WINDOW_MODE`` pick the arms
+as in the reference. The async apply (:func:`apply_general_block_async`)
+runs applies on a per-store applier thread.
 """
 
 import threading
@@ -337,6 +337,10 @@ class _SeqPool:
                 # ONE 4B/node fetch; the vis word host-unpacks for free
                 w2 = _to_host(self.mirror['w2'][:n])
                 vis, idx = unpack_w2_word(w2)
+            elif fmt == 'wide':
+                # same 4B/node fetch: W2 carries visible + vis_index
+                w2 = _to_host(self.mirror['w2'][:n])
+                vis, idx = unpack_wide_word(w2)
             else:
                 vis, idx = _fetch((self.mirror['visible'][:n],
                                    self.mirror['vis_index'][:n]))
@@ -768,8 +772,8 @@ class GeneralStore(BlockStore):
     def load_snapshot(cls, data, device=None):
         """Rebuild a store from :meth:`save_snapshot` bytes (this
         package's or the JAX package's — the format is shared) on
-        ``device``, with no replay: the packed or cols mirror is rebuilt
-        from the restored host columns. A compacted (tiered) snapshot
+        ``device``, with no replay: the packed, wide or cols mirror is
+        rebuilt from the restored host columns. A compacted (tiered) snapshot
         needs the compaction layer, which is not ported yet."""
         import io
         import json as _json2
@@ -920,10 +924,25 @@ class GeneralStore(BlockStore):
                 'tp': _dev(tp, dev),
                 'ranks': ranks.copy(), 'pos_row': pool.pos_row}
         elif _wide_mirror_guard(pool, n_act, a_pad):
-            # a resumed long-text store would build the wide mirror
-            raise NotImplementedError(
-                'this snapshot needs the wide mirror format, which is '
-                'not ported yet (ROADMAP A.4)')
+            # a resumed long-text store builds the wide mirror
+            # DIRECTLY — it must not start on cols and upgrade later
+            actor1 = pool.actor[rows].astype(np.int32) + 1
+            w1 = np.zeros(cap, np.int32)
+            w1[:n] = (pool.parent[rows].astype(np.int32)
+                      << _WIDE_PARENT_SHIFT) | (actor1 & _WIDE_ALO_MASK)
+            w2 = np.zeros(cap, np.int32)
+            w2[:n] = ((actor1 >> 10) << _WIDE_AHI_SHIFT) | \
+                (pool.visible[rows].astype(np.int32)
+                 << _WIDE_VIS_SHIFT) | \
+                (pool.vis_index[rows].astype(np.int32) + 1)
+            w3 = np.zeros(cap, np.int32)
+            w3[:n] = pool.elemc[rows]
+            self.pool.mirror = {
+                'fmt': 'wide', 'cap': cap, 'n': n,
+                'w1': _dev(w1, dev), 'w2': _dev(w2, dev),
+                'w3': _dev(w3, dev), 'tp': _dev(tp, dev),
+                'rank_n': n_act, 'rank_table': _rank_table(self, opts),
+                'pos_row': pool.pos_row}
         else:
             def col(src, fill, dtype):
                 out = np.full(cap, fill, dtype)
@@ -1426,17 +1445,33 @@ def _pack_bits(b):
         .to(torch.uint8)
 
 
+def _sink_index(idx, n):
+    """Flat int64 scatter indexes with every one outside [0, n) moved to
+    the sink slot n (the reference's ``mode='drop'``)."""
+    idx = idx.reshape(-1).to(torch.int64)
+    return torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+
+
 def _scatter_set(base, idx, vals):
     """``base.at[idx].set(vals, mode='drop')`` for 1-D ``base``: indexes
     outside [0, len) land in a sink slot that is sliced off."""
     n = base.shape[0]
-    idx = idx.reshape(-1).to(torch.int64)
-    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
     buf = torch.cat([base, base.new_zeros(1)])
-    return buf.scatter(0, idx, vals.reshape(-1).to(base.dtype))[:n]
+    return buf.scatter(0, _sink_index(idx, n),
+                       vals.reshape(-1).to(base.dtype))[:n]
 
 
-# shared staging idioms of the two fused programs (packed + cols) —
+def _scatter_reduce(base, idx, vals, reduce):
+    """``base.at[idx].add/max(vals, mode='drop')`` for 1-D ``base``
+    (``reduce`` 'sum' or 'amax'), with the same sink slot."""
+    n = base.shape[0]
+    buf = torch.cat([base, base.new_zeros(1)])
+    return buf.scatter_reduce(0, _sink_index(idx, n),
+                              vals.reshape(-1).to(base.dtype), reduce,
+                              include_self=True)[:n]
+
+
+# shared staging idioms of the fused programs (packed, wide, cols) —
 # one definition so the variants stay in lockstep by construction
 
 def _insert_counts(d_pos, cap):
@@ -1605,19 +1640,36 @@ def _fused_general_resident(m_parent, m_elemc, m_actor, m_visible,
 #   Guards: tree size <= 32767 nodes, elemc < 32768, actor count
 #   < 65535, per-doc actor slots <= 256, seq < 32768, coo seq < 32768.
 #
-# The JAX package also has a 'wide' 3-word layout for long texts (trees
-# to 2^22 - 1 nodes) and converts a resident mirror between formats in
-# place; both belong to the wide-mirror slice and raise here (ROADMAP
-# A.4). The unpacked `_fused_general_resident` (cols) is the fallback
-# for shapes past the packed guards, and the independent cross-check of
-# the packed FORMAT (bit fields, wire layout, dtype narrowing).
+# 'wide' — 3 words/node, the long-text format (the bounds lift): trees
+# to 2^22 - 1 nodes, elemc and seq bounded only by int32. The words
+# carry the STABLE actor id (+1; 0 = head) split 10/6 across W1/W2
+# instead of the rank, so a growing actor table never remaps the
+# mirror — the RGA rank comes from the small rank_table gather instead:
+#   W1 = parent << 10 | (actor+1) & 0x3FF
+#   W2 = ((actor+1) >> 10) << 23 | visible << 22 | (vis_index+1)
+#   W3 = elemc
+#   Guards: tree size <= 2^22 - 1 nodes, actor count < 65535, per-doc
+#   actor slots <= 256 (the u8 row-staging dtype). seq/coo seq ride
+#   int32 wire sections, elemc is a full int32 word.
+#
+# The unpacked `_fused_general_resident` (cols) remains the fallback
+# for shapes past both (>4M-node trees, >65535 actors, >256 per-doc
+# actor slots), and the independent cross-check of the packed FORMATS
+# (bit fields, wire layout, dtype narrowing). A store crossing a bound
+# mid-stream converts its resident mirror in place (`_mirror_convert`)
+# — packed -> wide is the boundary a long text document crosses.
 
 _W2_ELEM = 0x7FFF
 _W2_VIS_SHIFT = 30
 _W2_IDX_SHIFT = 15
 
-# the wide format's tree bound (its guard decides when an apply would
-# need the wide mirror, which raises in this slice)
+# wide-format bit layout (see the comment above)
+_WIDE_IDX_MASK = (1 << 22) - 1       # vis_index+1 (W2) / parent width
+_WIDE_VIS_SHIFT = 22
+_WIDE_AHI_SHIFT = 23
+_WIDE_AHI_BITS = 0x3F << _WIDE_AHI_SHIFT
+_WIDE_ALO_MASK = (1 << 10) - 1
+_WIDE_PARENT_SHIFT = 10
 _WIDE_MAX_TREE = (1 << 22) - 1
 
 
@@ -1639,6 +1691,15 @@ def unpack_w2_word(w2):
     return vis, idx
 
 
+def unpack_wide_word(w):
+    """Host-side unpack of a WIDE visibility word — the mirror W2 and
+    the wide program's vis output planes share the layout
+    ``visible << 22 | (idx + 1)``: (visible, vis_index)."""
+    vis = ((w >> _WIDE_VIS_SHIFT) & 1).astype(bool)
+    idx = ((w & _WIDE_IDX_MASK) - 1).astype(np.int32)
+    return vis, idx
+
+
 # test/dryrun hook: called once per apply with the staged planes and the
 # fused outputs (whichever variant ran) — the sharded-step equality
 # gates consume this instead of monkeypatching a program symbol
@@ -1650,19 +1711,31 @@ _STAGE_CAPTURE = None
 # falling back)
 _NATIVE_STAGING = None
 
-# incremental-index switch: None and 'rebuild' run the whole-object
-# rebuild variant (the incremental update is not ported yet — ROADMAP
-# A.4), 'require' raises on an apply with dirty sequences
+# incremental-index switch: None = auto (take the incremental path
+# whenever the eligibility gate holds), 'rebuild' = always run the
+# whole-object rebuild variant (the A/B arm and the parity oracle),
+# 'require' = raise when an apply with dirty sequences cannot go
+# incremental (tests: an invalidation path that silently falls back is a
+# bug)
 _INDEX_MODE = None
 
 # edit-stream read switch (GeneralPatch._ensure): one device launch
 # compacts the tick's edits into pre-ordered delta-sized buffers
 # (cuda_view.dispatch_edit_stream) and the read fetches THOSE instead
-# of the full O(doc) vis planes. A CUDA store always takes the kernel;
-# the switch only picks a CPU store's arm: None/False = host path,
-# True = the plain PyTorch edit stream. False on a CUDA store raises —
-# there is no kernel-free read path for tensors on the card.
+# of the full O(doc) vis planes. A CUDA store takes the kernel for
+# every whole-plane apply (a windowed apply hands the read only its
+# suffix planes, which the host unpacks, as in the reference); the
+# switch only picks a CPU store's arm: None/False = host path, True =
+# the plain PyTorch edit stream. False on a CUDA store raises.
 _EDIT_STREAM = None
+
+# suffix-window switch for the incremental index update: None = auto
+# (bound each eligible chain-shaped job's renumber to the suffix
+# window containing every delta anchor and touched node), 'off' =
+# always renumber the whole plane (the whole-plane A/B arm), 'require'
+# = raise when an incremental apply with dirty sequences cannot window
+# (tests: a silent fallback on the end-typing shape is a bug)
+_WINDOW_MODE = None
 
 # staging-cache switch (delta admit/stage): None = auto (keep per-
 # object sorted elemId -> local indexes across applies and let both
@@ -1676,7 +1749,8 @@ def _edit_stream_on(device):
         if _EDIT_STREAM is False:
             raise ValueError(
                 '_EDIT_STREAM=False is a CPU-store switch; a CUDA store '
-                'always reads its patch through the edit-stream kernel')
+                'reads its whole-plane patches through the edit-stream '
+                'kernel')
         return True
     return bool(_EDIT_STREAM)
 
@@ -1722,6 +1796,24 @@ def _wire_sizes(d_pad, n_pad, K, nnz_pad):
     return 4 * i32_n + 2 * i16_n + u8_n
 
 
+def _wire_sizes_wide(d_pad, n_pad, K, nnz_pad):
+    """Byte count of the WIDE program's wire buffer. Same contract as
+    `_wire_sizes`: the host packing loop, the C++ `amst_fill_wire_wide`
+    and the device slicing in `_parse_wire_wide` must list the sections
+    in THIS order (seq/coo_val widen to int32 — a long-lived actor's seq
+    exceeds 32767 at exactly the history length whose tree needs this
+    format):
+    i32: w1_new[d_pad] w3_new[d_pad] d_pos[d_pad] row_slot[n_pad]
+         seq[n_pad] coo_row[nnz_pad] coo_val[nnz_pad]
+         job_start[K] job_n[K]
+    u8:  ahi_new[d_pad] actor[n_pad] flags[2*(n_pad>>3)]
+         coo_col[nnz_pad]
+    """
+    i32_n = 3 * d_pad + 2 * n_pad + 2 * nnz_pad + 2 * K
+    u8_n = d_pad + n_pad + 2 * (n_pad >> 3) + nnz_pad
+    return 4 * i32_n + u8_n
+
+
 def _wire_cut(vec, state, cnt):
     o = state[0]
     state[0] = o + cnt
@@ -1757,6 +1849,39 @@ def _parse_wire_packed(wire, sizes):
     coo_col = _wire_cut(u8v, s8, nnz_pad).to(_I32)
     return (w1d, d_pos, row_slot, coo_row, job_start, job_n, w2e, seq,
             coo_val, actor, flags_u8, coo_col)
+
+
+def _parse_wire_wide(wire, sizes):
+    """The WIDE counterpart of `_parse_wire_packed` (section order of
+    `_wire_sizes_wide` / `amst_fill_wire_wide`). Returns
+    (w1d, w3d, d_pos, row_slot, seq, coo_row, coo_val, job_start,
+     job_n, d_ahi, actor, flags_u8, coo_col)."""
+    d_pad, n_pad, K, nnz_pad = sizes
+    i32_n = 3 * d_pad + 2 * n_pad + 2 * nnz_pad + 2 * K
+    i32v = wire[:4 * i32_n].view(torch.int32)
+    u8v = wire[4 * i32_n:]
+    s32, s8 = [0], [0]
+    w1d = _wire_cut(i32v, s32, d_pad)
+    w3d = _wire_cut(i32v, s32, d_pad)
+    d_pos = _wire_cut(i32v, s32, d_pad)
+    row_slot = _wire_cut(i32v, s32, n_pad)
+    seq = _wire_cut(i32v, s32, n_pad)
+    coo_row = _wire_cut(i32v, s32, nnz_pad)
+    coo_val = _wire_cut(i32v, s32, nnz_pad)
+    job_start = _wire_cut(i32v, s32, K)
+    job_n = _wire_cut(i32v, s32, K)
+    d_ahi = _wire_cut(u8v, s8, d_pad).to(_I32)
+    actor = _wire_cut(u8v, s8, n_pad).to(_I32)
+    flags_u8 = _wire_cut(u8v, s8, 2 * (n_pad >> 3))
+    coo_col = _wire_cut(u8v, s8, nnz_pad).to(_I32)
+    return (w1d, w3d, d_pos, row_slot, seq, coo_row, coo_val,
+            job_start, job_n, d_ahi, actor, flags_u8, coo_col)
+
+
+def _take(table, idx):
+    """``table[idx]`` with the index clamped into the table (the
+    reference's in-range small-table gathers: rank tables, remaps)."""
+    return table[idx.to(torch.int64).clamp(0, table.shape[0] - 1)]
 
 
 def _fused_general_packed(w1m, w2m, tpm, wire, n_old, n_rows,
@@ -1835,6 +1960,336 @@ def _fused_general_packed(w1m, w2m, tpm, wire, n_old, n_rows,
     return w1f, w2f, tpf, surv_u8, out['winner'], vis_packed
 
 
+def _fused_general_wide(w1m, w2m, w3m, tpm, wire, n_old, n_rows,
+                        rank_table, *, sizes, num_segments, a_pad,
+                        m_pad, has_old):
+    """One apply against the WIDE 3-word packed mirror (trees to
+    2^22 - 1 nodes; elemc/seq bounded only by int32). Same program
+    shape as `_fused_general_packed` with the wide bit layout, int32
+    seq/coo wire sections and actor ids (stable) in the words instead
+    of ranks — the RGA rank rides the small `rank_table` gather, so a
+    growing actor table never remaps the mirror. The whole-object
+    REBUILD variant: fresh tree positions (re)initialize the
+    persistent 'tp' index plane. Outputs: (w1', w2', w3', tp',
+    surv_u8, winner[S], vis_prior[K, m_pad], vis_new[K, m_pad]);
+    each vis plane word is ``visible << 22 | (idx + 1)``
+    (`unpack_wide_word`)."""
+    from .sequence import _rga_order_batched
+    d_pad, n_pad, K, nnz_pad = sizes
+    cap = w1m.shape[0]
+    dev = w1m.device
+
+    (w1d, w3d, d_pos, row_slot, seq, coo_row, coo_val, job_start,
+     job_n, d_ahi, actor, flags_u8, coo_col) = _parse_wire_wide(wire, sizes)
+
+    # ---- fold the new nodes into the pos-ordered mirror ----
+    tgt_new = d_pos + torch.arange(d_pad, dtype=_I32, device=dev)
+    if has_old:
+        i = torch.arange(cap, dtype=_I32, device=dev)
+        cnt = _insert_counts(d_pos, cap)
+        tgt_old = torch.where(i < n_old, i + cnt, torch.full_like(i, cap))
+    else:
+        tgt_old = None
+    w1f = _fold(w1m, w1d, tgt_old, tgt_new, 0)
+    # new nodes: hidden, vis_index+1 = 0, actor-hi bits ride along
+    w2f = _fold(w2m, d_ahi << _WIDE_AHI_SHIFT, tgt_old, tgt_new, 0)
+    w3f = _fold(w3m, w3d, tgt_old, tgt_new, 0)
+    tpf = _fold(tpm, torch.zeros(d_pad, dtype=_I32, device=dev), tgt_old,
+                tgt_new, 0)
+
+    # ---- job planes ----
+    pos_mat, valid_plane, pos_c = _job_planes(job_start, job_n, m_pad, cap)
+    w1p = w1f[pos_c]
+    w2p = w2f[pos_c]
+    s_elem = w3f[pos_c]
+    s_parent = (w1p >> _WIDE_PARENT_SHIFT) & _WIDE_IDX_MASK
+    actor1 = (w1p & _WIDE_ALO_MASK) | \
+        (((w2p >> _WIDE_AHI_SHIFT) & 0x3F) << 10)
+    s_rank = _take(rank_table, actor1)
+    prior_vis = ((w2p >> _WIDE_VIS_SHIFT) & 1).to(torch.bool) & valid_plane
+    prior_idx = torch.where(valid_plane, (w2p & _WIDE_IDX_MASK) - 1,
+                            torch.full_like(w2p, -1))
+
+    # ---- field resolution (scan-based; rows arrive field-sorted) ----
+    valid, out = _resolve_rows(flags_u8, actor, seq, n_rows, a_pad,
+                               coo_row, coo_col, coo_val, num_segments)
+
+    # ---- element visibility ----
+    touched, vis_hit = _vis_grid(row_slot, valid, out['surviving'], K,
+                                 m_pad)
+    visible = torch.where(touched, vis_hit, prior_vis) & valid_plane
+    ordered = _rga_order_batched(s_parent, s_elem, s_rank, visible,
+                                 valid_plane)
+    new_idx = ordered['vis_index']
+
+    # ---- scatter the updated vis word + tree positions back ----
+    w2n = (w2p & _WIDE_AHI_BITS) | \
+        (visible.to(_I32) << _WIDE_VIS_SHIFT) | (new_idx + 1)
+    scatter_pos = torch.where(valid_plane, pos_mat,
+                              torch.full_like(pos_mat, cap))
+    w2f = _scatter_set(w2f, scatter_pos, w2n)
+    tpf = _scatter_set(tpf, scatter_pos, ordered['tree_pos'])
+
+    surv_u8 = _pack_bits(out['surviving'])
+    vis_prior = (prior_vis.to(_I32) << _WIDE_VIS_SHIFT) | (prior_idx + 1)
+    vis_new = (visible.to(_I32) << _WIDE_VIS_SHIFT) | (new_idx + 1)
+    return w1f, w2f, w3f, tpf, surv_u8, out['winner'], vis_prior, vis_new
+
+
+def _fused_general_incr(w1m, w2m, w3m, tpm, wire, jd_base, ws, n_old,
+                        n_rows, aux, *, fmt, sizes, num_segments,
+                        a_pad, m_pad, dm_pad, has_remap):
+    """One apply as an INCREMENTAL index update (Jiffy-style batch
+    insert) against the packed/WIDE resident mirror: instead of
+    re-deriving every dirty sequence's order from scratch, this merges
+    the tick's delta into the PERSISTENT tree-position plane ('tp'):
+
+    1. the delta nodes order among THEMSELVES with
+       `_rga_delta_order_batched` over [K, dm_pad+1] planes (the RGA
+       kernel's delta mode on the card) — independent of tree size;
+    2. ONE prefix-sum pass over the [K, m_pad] planes splices them in:
+       old node at position p shifts by #{delta anchors < p}, delta
+       node with group anchor a and delta rank r lands at a + r + 1;
+    3. the visibility index rebuilds with a scatter + cumsum + gather
+       (deletes/sets are pure visibility flips — zero sort work).
+
+    Valid only under the host-checked FRONT-INSERT precondition (every
+    delta root's elem exceeds its object's pre-tick max elem) and only
+    for objects whose 'tp' plane is current (`pool.idx_ok`); the host
+    falls back to the rebuild variant otherwise. ``aux`` is the packed
+    format's rank_remap (`has_remap`) or the wide format's rank_table.
+
+    SUFFIX WINDOW (``ws``, int32[K]): for chain-shaped objects the host
+    may bound each job to the suffix window [ws_j, n_j) that contains
+    every delta anchor and every touched node: ``job_start`` arrives
+    rebased by ws_j, ``jd_base`` arrives window-RELATIVE, m_pad is the
+    padded WINDOW width, and the plane holds only the window's nodes.
+    Inside the program tp VALUES stay absolute while plane INDICES are
+    window-relative (offset by ws_j); the visible count the window
+    skips (``pvis``) reads from the folded mirror's own vis bits.
+    ``ws = 0`` reduces every rebase to the identity. Below-window
+    mirror words are never rewritten.
+
+    Same wire layout, resolution pipeline and output contract as the
+    matching rebuild variant. Returns the uniform 8-tuple (w1', w2',
+    w3', tp', surv_u8, winner, visA, visB): packed sets w3' = w3m (None)
+    and visA = visB = vis_packed; wide returns vis_prior/vis_new."""
+    from .sequence import _rga_delta_order_batched
+    d_pad, n_pad, K, nnz_pad = sizes
+    cap = w1m.shape[0]
+    dev = w1m.device
+
+    # ---- wire parse: the rebuild variants' section layouts ----
+    if fmt == 'packed':
+        (w1d, d_pos, row_slot, coo_row, job_start, job_n, w2e, seq,
+         coo_val, actor, flags_u8, coo_col) = _parse_wire_packed(wire, sizes)
+        if has_remap:
+            w1m = (w1m & ~0xFFFF) | _take(aux, w1m & 0xFFFF).to(_I32)
+    else:
+        (w1d, w3d, d_pos, row_slot, seq, coo_row, coo_val, job_start,
+         job_n, d_ahi, actor, flags_u8, coo_col) = \
+            _parse_wire_wide(wire, sizes)
+
+    # ---- fold the new nodes in (an existing mirror is a precondition
+    # of the incremental path). Inverse-gather formulation: each output
+    # slot GATHERS its source through one prefix sum over the delta-slot
+    # marks, and only the d_pad delta values scatter. ----
+    i = torch.arange(cap, dtype=_I32, device=dev)
+    tgt_new = d_pos + torch.arange(d_pad, dtype=_I32, device=dev)
+    in_new = _scatter_set(torch.zeros(cap + 1, dtype=torch.bool,
+                                      device=dev), tgt_new,
+                          torch.ones(d_pad, dtype=torch.bool,
+                                     device=dev))[:cap]
+    d_before = torch.cumsum(in_new.to(_I32), dim=0, dtype=_I32)
+    src = (i - d_before).clamp(0, cap - 1).to(torch.int64)
+
+    def fold(col, dcol):
+        base = torch.where(in_new, torch.zeros_like(col), col[src])
+        return _scatter_set(base, tgt_new, dcol)
+
+    w1f = fold(w1m, w1d)
+    if fmt == 'packed':
+        w2f = fold(w2m, w2e)
+        w3f = w3m
+    else:
+        w2f = fold(w2m, d_ahi << _WIDE_AHI_SHIFT)
+        w3f = fold(w3m, w3d)
+    tpf = fold(tpm, torch.zeros(d_pad, dtype=_I32, device=dev))
+
+    # ---- suffix-window prefix: #visible nodes each job skips below its
+    # window, straight off the folded mirror (positions [job_start - ws,
+    # job_start) hold exactly the skipped locals [0, ws); new nodes
+    # splice above them and carry vis bit 0). ws = 0 gives pvis = 0. ----
+    vshift = _W2_VIS_SHIFT if fmt == 'packed' else _WIDE_VIS_SHIFT
+    visbit = ((w2f >> vshift) & 1).to(_I32)
+    vcum = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
+                      torch.cumsum(visbit, dim=0, dtype=_I32)])
+    pvis = vcum[job_start.to(torch.int64).clamp(0, cap)] - \
+        vcum[(job_start - ws).to(torch.int64).clamp(0, cap)]
+
+    # ---- job planes ----
+    l = torch.arange(m_pad, dtype=_I32, device=dev)
+    rowi = torch.arange(K, dtype=torch.int64, device=dev)[:, None]
+    pos_mat, valid_plane, pos_c = _job_planes(job_start, job_n, m_pad, cap)
+    w1p = w1f[pos_c]
+    w2p = w2f[pos_c]
+    tpp = tpf[pos_c]
+    if fmt == 'packed':
+        s_parent = w1p >> 16
+        s_rank = w1p & 0xFFFF
+        s_elem = w2p & _W2_ELEM
+        prior_vis = ((w2p >> _W2_VIS_SHIFT) & 1).to(torch.bool) \
+            & valid_plane
+        prior_idx = torch.where(valid_plane,
+                                ((w2p >> _W2_IDX_SHIFT) & _W2_ELEM) - 1,
+                                torch.full_like(w2p, -1))
+    else:
+        s_elem = w3f[pos_c]
+        s_parent = (w1p >> _WIDE_PARENT_SHIFT) & _WIDE_IDX_MASK
+        actor1 = (w1p & _WIDE_ALO_MASK) | \
+            (((w2p >> _WIDE_AHI_SHIFT) & 0x3F) << 10)
+        s_rank = _take(aux, actor1)
+        prior_vis = ((w2p >> _WIDE_VIS_SHIFT) & 1).to(torch.bool) \
+            & valid_plane
+        prior_idx = torch.where(valid_plane, (w2p & _WIDE_IDX_MASK) - 1,
+                                torch.full_like(w2p, -1))
+
+    # ---- field resolution (identical to the rebuild variants) ----
+    valid, out = _resolve_rows(flags_u8, actor, seq, n_rows, a_pad,
+                               coo_row, coo_col, coo_val, num_segments)
+
+    # ---- element visibility ----
+    touched, vis_hit = _vis_grid(row_slot, valid, out['surviving'], K,
+                                 m_pad)
+    visible = torch.where(touched, vis_hit, prior_vis) & valid_plane
+
+    # ---- incremental order update: delta ordering + ONE prefix-sum
+    # merge against the persistent 'tp' plane ----
+    jd = jd_base[:, None]
+    wsc = ws[:, None]
+    is_old_node = (l[None, :] < jd) & valid_plane
+    dj = torch.arange(dm_pad, dtype=_I32, device=dev)
+    dcols = jd + dj[None, :]
+    dvalid = dj[None, :] < (job_n - jd_base)[:, None]
+    dcols_c = torch.where(dvalid, dcols, torch.zeros_like(dcols)) \
+        .clamp(0, m_pad - 1).to(torch.int64)
+    dparent = torch.gather(s_parent, 1, dcols_c)
+    delem = torch.gather(s_elem, 1, dcols_c)
+    drank = torch.gather(s_rank, 1, dcols_c)
+    # a delta node whose parent pre-existed is a delta ROOT; its anchor
+    # is the parent's OLD tree position (front-insert: the whole group
+    # splices immediately after the anchor). dparent is an absolute
+    # local index; the window plane rebases it by ws.
+    dparent_rel = dparent - wsc
+    p_old = dvalid & (dparent_rel < jd)
+    anchor = torch.gather(tpp, 1,
+                          dparent_rel.clamp(0, m_pad - 1).to(torch.int64))
+    zero = torch.zeros_like(anchor)
+
+    def pad1(x, fill):
+        return torch.cat([torch.full((K, 1), fill, dtype=x.dtype,
+                                     device=dev), x], dim=1)
+
+    anch1 = pad1(torch.where(p_old, anchor, zero), 0)
+    dpos = _rga_delta_order_batched(
+        pad1(torch.where(p_old, zero, dparent_rel - jd + 1), 0),
+        anch1, pad1(delem, 0), pad1(drank, 0), pad1(dvalid, True))
+    dm1 = dm_pad + 1
+    is_root1 = pad1(p_old, False)
+    dvalid1 = pad1(dvalid, False)
+    dpos_c = dpos.clamp(0, dm1 - 1).to(torch.int64)
+    # group anchor per delta DFS position: roots scatter theirs, the
+    # running max propagates it over each root's (contiguous) subtree —
+    # anchors ascend across groups by construction of the sort
+    anch_at = torch.zeros((K, dm1), dtype=_I32, device=dev).scatter_reduce(
+        1, torch.where(is_root1, dpos_c, torch.zeros_like(dpos_c)),
+        torch.where(is_root1, anch1, torch.zeros_like(anch1)), 'amax',
+        include_self=True)
+    a_pos = torch.cummax(anch_at, dim=1).values
+    a_of = torch.gather(a_pos, 1, dpos_c)
+    d_tp = a_of + dpos                 # final position: a + r + 1
+    # old-node shift = #{delta anchors < old position}: scatter-add the
+    # anchors, one cumsum — THE merge prefix-sum (anchor tp values are
+    # absolute; the plane index is window-relative)
+    a_col = torch.where(dvalid1, (a_of - wsc).clamp(0, m_pad - 1),
+                        torch.zeros_like(a_of)).to(torch.int64)
+    cnt_a = torch.zeros((K, m_pad), dtype=_I32, device=dev).scatter_add(
+        1, a_col, dvalid1.to(_I32))
+    cum_a = torch.cumsum(cnt_a, dim=1, dtype=_I32)
+    tpp_c = (tpp - wsc).clamp(0, m_pad - 1).to(torch.int64)
+    shift = torch.gather(cum_a, 1, tpp_c) - torch.gather(cnt_a, 1, tpp_c)
+    tp_new = torch.where(is_old_node, tpp + shift, torch.zeros_like(tpp))
+    dslot = torch.where(dvalid1, pad1(dcols, 0),
+                        torch.full_like(a_of, m_pad)).to(torch.int64)
+    tp_new = torch.cat([tp_new, torch.zeros((K, 1), dtype=_I32,
+                                            device=dev)], dim=1) \
+        .scatter(1, dslot, d_tp)[:, :m_pad]
+
+    # ---- visibility index over the updated order (one flat permutation
+    # scatter + cumsum + gather; tp_new is injective per job over the
+    # chain). Windowed jobs renumber only the suffix: relative positions
+    # start at 0 and the skipped prefix re-enters as the pvis offset. ----
+    on_chain = valid_plane & (tp_new > 0) & (tp_new >= wsc)
+    tp_rel = torch.where(on_chain, tp_new - wsc, torch.zeros_like(tp_new))
+    flat_tp = torch.where(on_chain, rowi.to(_I32) * m_pad + tp_rel,
+                          torch.full_like(tp_rel, K * m_pad))
+    vis_ord = _scatter_set(
+        torch.zeros(K * m_pad + 1, dtype=torch.bool, device=dev), flat_tp,
+        visible & on_chain)[:K * m_pad].reshape(K, m_pad)
+    vo = vis_ord.to(_I32)
+    vis_rank = torch.cumsum(vo, dim=1, dtype=_I32) - vo
+    new_idx = torch.gather(vis_rank, 1,
+                           tp_rel.clamp(max=m_pad - 1).to(torch.int64)) + \
+        pvis[:, None]
+    new_idx = torch.where(visible & on_chain, new_idx,
+                          torch.full_like(new_idx, -1))
+
+    # ---- write the updated vis word + tree positions back: every job's
+    # nodes are ONE contiguous pos window, so window membership and the
+    # owning job come from K-sized mark scatters + one prefix max, and
+    # each mirror slot gathers its updated value ----
+    if fmt == 'packed':
+        w2n = (visible.to(_I32) << _W2_VIS_SHIFT) | \
+            ((new_idx + 1) << _W2_IDX_SHIFT) | s_elem
+    else:
+        w2n = (w2p & _WIDE_AHI_BITS) | \
+            (visible.to(_I32) << _WIDE_VIS_SHIFT) | (new_idx + 1)
+    real_job = job_n > 0
+    capv = torch.full_like(job_start, cap)
+    one = real_job.to(_I32)
+    marks = torch.zeros(cap + 1, dtype=_I32, device=dev)
+    marks = _scatter_reduce(marks, torch.where(real_job, job_start, capv),
+                            one, 'sum')
+    marks = _scatter_reduce(marks, torch.where(real_job, job_start + job_n,
+                                               capv), -one, 'sum')
+    in_win = torch.cumsum(marks[:cap], dim=0, dtype=_I32) > 0
+    job_mark = _scatter_reduce(
+        torch.zeros(cap + 1, dtype=_I32, device=dev),
+        torch.where(real_job, job_start, capv),
+        torch.arange(1, K + 1, dtype=_I32, device=dev), 'amax')
+    job_at = torch.cummax(job_mark[:cap], dim=0).values - 1
+    job_c = job_at.clamp(min=0).to(torch.int64)
+    l_at = (i - job_start[job_c]).clamp(0, m_pad - 1).to(torch.int64)
+    flat_at = job_c * m_pad + l_at
+
+    def write_back(col, plane):
+        return torch.where(in_win, plane.reshape(-1)[flat_at], col)
+
+    w2f = write_back(w2f, w2n)
+    tpf = write_back(tpf, tp_new)
+
+    surv_u8 = _pack_bits(out['surviving'])
+    if fmt == 'packed':
+        vis_packed = (prior_vis.to(_I32) << 31) | \
+            (visible.to(_I32) << 30) | \
+            ((prior_idx + 1) << _W2_IDX_SHIFT) | (new_idx + 1)
+        vis_a = vis_b = vis_packed
+    else:
+        vis_a = (prior_vis.to(_I32) << _WIDE_VIS_SHIFT) | (prior_idx + 1)
+        vis_b = (visible.to(_I32) << _WIDE_VIS_SHIFT) | (new_idx + 1)
+    return w1f, w2f, w3f, tpf, surv_u8, out['winner'], vis_a, vis_b
+
+
 def _mirror_tp_in(mir, cap, n_total, device):
     """The persistent 'tp' plane as this apply's input: grown with the
     mirror capacity; zeros when absent (first mirror) — the rebuild
@@ -1849,25 +2304,207 @@ def _mirror_tp_in(mir, cap, n_total, device):
     return mir['tp']
 
 
-def _pick_incremental(pool, dirty):
-    """Mode switch + counters for one packed apply. The incremental
-    index update (``_fused_general_incr``, its eligibility gate and the
-    suffix window) is not ported yet (ROADMAP A.4): every apply takes
-    the whole-object rebuild, whose outputs the reference's parity suite
-    pins equal to the incremental update's. ``_INDEX_MODE='require'``
-    raises instead of silently rebuilding."""
-    if _INDEX_MODE == 'require' and len(dirty):
-        raise NotImplementedError(
-            'the incremental index update is not ported yet '
-            "(_INDEX_MODE='require'; ROADMAP A.4)")
-    if len(dirty):
-        metrics.bump('device_idx_rebuild_applies')
+def _pick_incremental(pool, mir, dirty, n_j, nof_pre, mel_pre, n_old,
+                      n_total, m_pad, opts, parent_d, elemc_d):
+    """Mode switch + eligibility + counters for one packed/wide apply.
+    Returns the eligibility tuple or None (rebuild)."""
+    incr = None
+    if (_INDEX_MODE != 'rebuild' and mir is not None
+            and 'tp' in mir and n_old > 0 and len(dirty)):
+        incr = _incr_eligibility(pool, dirty, n_j, nof_pre, mel_pre,
+                                 n_old, n_total, m_pad, parent_d,
+                                 elemc_d, opts)
+    if incr is not None:
+        metrics.bump('device_idx_incremental_applies')
+        metrics.bump('device_idx_delta_nodes', int(n_total - n_old))
+    else:
+        if len(dirty):
+            metrics.bump('device_idx_rebuild_applies')
+        if _INDEX_MODE == 'require' and len(dirty):
+            # loud, with store rollback via the apply txn: an
+            # invalidation path that silently falls back is a bug the
+            # tests must see
+            raise RuntimeError(
+                "incremental index path required (_INDEX_MODE="
+                "'require') but this apply is ineligible")
+    return incr
+
+
+def _incr_eligibility(pool, dirty, n_j, nof_pre, mel_pre, n_old,
+                      n_total, m_pad, parent_d, elemc_d, opts):
+    """Host gate of the incremental-index path: O(delta) checks that
+    every dirty object's persistent 'tp' plane is current
+    (``pool.idx_ok``) and that every delta node with a PRE-EXISTING
+    parent is a front insert (elem strictly above the object's
+    pre-tick max elem, hence above every existing sibling — the
+    sequential-typing and concurrent-append shape). A late/concurrent
+    interleaving insert, a first-sight object or an oversized delta
+    returns None: the apply takes the whole-object rebuild variant,
+    which re-validates the index for its dirty set. Returns
+    ``(dm_pad, jd_base, min_rp)`` on success, where ``min_rp[j]`` is
+    the smallest PRE-EXISTING parent local any of job j's delta nodes
+    anchors to (``jd_base[j]`` when none) — the anchor bound the
+    suffix-window pick (`_apply_window`) intersects with the touched
+    rows."""
+    K_jobs = len(dirty)
+    if K_jobs == 0:
+        return None
+    hi_obj = int(dirty.max())
+    if hi_obj >= len(pool.idx_ok) or hi_obj >= len(nof_pre):
+        return None
+    if not pool.idx_ok[dirty].all():
+        metrics.bump('device_idx_invalidations')
+        return None
+    old_nof = nof_pre[dirty]
+    if (old_nof < 1).any():
+        return None
+    jd_n = n_j - old_nof
+    if (jd_n < 0).any():
+        return None
+    dm = int(jd_n.max()) if K_jobs else 0
+    if dm and 2 * dm > int(n_j.max()):
+        # the delta approaches the tree size (bulk load, first fill):
+        # the rebuild is no more work and re-validates the index
+        return None
+    dm_pad = opts.pad_nodes(max(dm, 8))
+    d_n = n_total - n_old
+    min_rp = old_nof.astype(np.int64).copy()
+    if d_n:
+        # delta obj column in pos order == the sorted append-order
+        # column (pos order sorts by (obj, local); within one object
+        # the values are identical, so alignment with the d planes
+        # holds rowwise)
+        obj_d = np.sort(pool.obj[n_old:n_total]).astype(np.int64)
+        pos = np.searchsorted(dirty, obj_d)
+        safe = np.minimum(pos, K_jobs - 1)
+        in_dirty = (pos < K_jobs) & (dirty[safe] == obj_d)
+        if in_dirty.any():
+            par = np.asarray(parent_d[:d_n])[in_dirty]
+            base = old_nof[safe[in_dirty]]
+            rooted = par < base
+            if rooted.any():
+                mel = mel_pre[obj_d[in_dirty][rooted]]
+                el = np.asarray(elemc_d[:d_n])[in_dirty][rooted] \
+                    .astype(np.int64)
+                if (el <= mel).any():
+                    metrics.bump('device_idx_invalidations')
+                    return None
+                np.minimum.at(min_rp, safe[in_dirty][rooted],
+                              par[rooted].astype(np.int64))
+    return dm_pad, old_nof.astype(np.int32), min_rp
+
+
+def _apply_window(lin_pre, dirty, n_j, jd_base, min_rp, row_slot_v,
+                  job_start_v, job_n_v, m_pad, n_rows, K, opts):
+    """Suffix-window gate + in-place wire rewrite for an incremental
+    apply. A job windows when its pre-append tree is a pure chain
+    (``pool.idx_linear``: parent[local] == local-1 for every real
+    node, so tree position == local and any suffix of locals is a
+    suffix of tree positions) — then nothing below
+    ``ws = min(min rooted delta parent, min touched node local)``
+    can change visibility or index, and the device only needs the
+    plane columns [ws, n). Rewrites the HOST wire's job_start (+= ws),
+    job_n (-= ws) and row_slot (rebased to window columns with the
+    shrunk per-job stride ``w_pad``) sections IN PLACE, through numpy
+    views, before the wire crosses to the device as one copy. Returns
+    ``(w_pad, ws_k, jd_rel, win_n)`` or None (dispatch whole-plane):
+    only engages when the windowed plane is a strictly smaller bucket
+    than the full one — zeros in ``ws_k`` padding rows keep the
+    program's math an identity there."""
+    kj = len(dirty)
+    if kj == 0 or int(dirty.max()) >= len(lin_pre):
+        return None
+    if not lin_pre[dirty].all():
+        return None
+    ws = np.minimum(jd_base.astype(np.int64), min_rp)
+    rs = np.asarray(row_slot_v[:n_rows])
+    ok = rs >= 0
+    loc = nd = None
+    if ok.any():
+        loc = rs[ok].astype(np.int64) // m_pad
+        nd = rs[ok].astype(np.int64) % m_pad
+        np.minimum.at(ws, loc, nd)
+    ws = np.maximum(ws, 0)
+    win_n = n_j.astype(np.int64) - ws
+    w_pad = opts.pad_nodes(max(int(win_n.max()), 8))
+    if w_pad >= m_pad:
+        return None
+    if loc is not None:
+        row_slot_v[:n_rows][ok] = \
+            (loc * w_pad + (nd - ws[loc])).astype(np.int32)
+    job_start_v[:kj] = job_start_v[:kj] + ws.astype(np.int32)
+    job_n_v[:kj] = win_n.astype(job_n_v.dtype)
+    jd_rel = (jd_base.astype(np.int64) - ws).astype(np.int32)
+    ws_k = np.zeros(K, np.int32)
+    ws_k[:kj] = ws
+    return w_pad, ws_k, jd_rel, win_n
+
+
+def _pick_window(lin_pre, dirty, n_j, jd_base, min_rp, rs_v, js_v, jn_v,
+                 m_pad, n_rows, K, opts):
+    """Mode switch + counter around `_apply_window` for one incremental
+    apply: returns ``(window or None, ws_k)`` — ``ws_k`` all zeros when
+    the apply dispatches whole-plane. ``_WINDOW_MODE='require'`` raises
+    where the window cannot engage."""
+    win = None
+    if _WINDOW_MODE != 'off' and _blocks._delta_host_on():
+        win = _apply_window(lin_pre, dirty, n_j, jd_base, min_rp, rs_v,
+                            js_v, jn_v, m_pad, n_rows, K, opts)
+    if win is not None:
+        metrics.bump('device_idx_window_applies')
+        return win, win[1]
+    if _WINDOW_MODE == 'require' and len(dirty):
+        raise RuntimeError(
+            "suffix-window path required (_WINDOW_MODE="
+            "'require') but this apply cannot window")
+    return None, np.zeros(K, np.int32)
+
+
+def _mirror_pack(parent, elemc, actor, visible, visidx, rank_table):
+    """cols -> packed mirror (format upgrade when the guards pass)."""
+    rank1 = _take(rank_table, actor + 1) + 1
+    rank1 = torch.where(actor < 0, torch.zeros_like(rank1), rank1)
+    w1 = (parent << 16) | rank1
+    w2 = (visible.to(_I32) << _W2_VIS_SHIFT) | \
+        ((visidx + 1) << _W2_IDX_SHIFT) | elemc
+    return w1, w2
+
+
+def _mirror_unpack(w1, w2, rank_to_actor):
+    """packed -> cols mirror (format downgrade before a fallback
+    apply). `rank_to_actor[rank+1]` = actor id (-1 at 0/head)."""
+    parent = w1 >> 16
+    actor = _take(rank_to_actor, w1 & 0xFFFF)
+    elemc = w2 & _W2_ELEM
+    visible = ((w2 >> _W2_VIS_SHIFT) & 1).to(torch.bool)
+    visidx = ((w2 >> _W2_IDX_SHIFT) & _W2_ELEM) - 1
+    return parent, elemc, actor, visible, visidx
+
+
+def _mirror_pack_wide(parent, elemc, actor, visible, visidx):
+    """cols -> WIDE mirror words (stable actor ids, no rank table)."""
+    actor1 = actor + 1                       # head (-1) -> 0
+    w1 = (parent << _WIDE_PARENT_SHIFT) | (actor1 & _WIDE_ALO_MASK)
+    w2 = ((actor1 >> 10) << _WIDE_AHI_SHIFT) | \
+        (visible.to(_I32) << _WIDE_VIS_SHIFT) | (visidx + 1)
+    return w1, w2, elemc
+
+
+def _mirror_unpack_wide(w1, w2, w3):
+    """WIDE -> cols mirror pieces."""
+    parent = (w1 >> _WIDE_PARENT_SHIFT) & _WIDE_IDX_MASK
+    actor1 = (w1 & _WIDE_ALO_MASK) | \
+        (((w2 >> _WIDE_AHI_SHIFT) & 0x3F) << 10)
+    actor = actor1 - 1
+    visible = ((w2 >> _WIDE_VIS_SHIFT) & 1).to(torch.bool)
+    visidx = (w2 & _WIDE_IDX_MASK) - 1
+    return parent, w3, actor, visible, visidx
 
 
 def _rank_table(store, opts):
     """actor-id -> string-rank device table, 1-BASED (slot 0 is the
-    head sentinel) — the layout the cols program indexes with
-    `actor + 1`."""
+    head sentinel) — the layout `_mirror_pack`/the cols program index
+    with `actor + 1`."""
     n_act = len(store.actors)
     rt = np.zeros(opts.pad_actors(n_act + 1), np.int32)
     rt[1:n_act + 1] = store.actor_str_ranks()
@@ -1875,12 +2512,54 @@ def _rank_table(store, opts):
 
 
 def _mirror_convert(mir, to_fmt, store, opts):
-    """Converting a resident mirror between formats (a store crossing a
-    format guard mid-stream) belongs to the wide-mirror slice."""
-    raise NotImplementedError(
-        f"converting the resident mirror from {mir.get('fmt', 'cols')!r} "
-        f'to {to_fmt!r} is not ported yet (wide mirror and '
-        '_mirror_convert: ROADMAP A.4)')
+    """Convert a resident mirror between the packed/wide/cols formats
+    (a store crossing a format guard mid-stream — e.g. a text document
+    growing past 32767 nodes upgrades packed -> wide IN PLACE and keeps
+    riding a fused packed program). Elementwise device ops plus
+    small-table gathers, on the mirror's device; same cap/n/pos_row.
+    Every conversion bumps a `general_mirror_convert_<from>_to_<to>`
+    counter so a fleet silently living on a slower format is visible."""
+    n_act = len(store.actors)
+    from_fmt = mir.get('fmt', 'cols')
+    metrics.bump('general_mirror_converts')
+    metrics.bump(f'general_mirror_convert_{from_fmt}_to_{to_fmt}')
+    if from_fmt == 'packed':
+        old_ranks = mir['ranks']
+        inv = np.full(opts.pad_actors(len(old_ranks) + 2), -1, np.int32)
+        inv[old_ranks + 1] = np.arange(len(old_ranks))
+        parent, elemc, actor, visible, visidx = _mirror_unpack(
+            mir['w1'], mir['w2'], _dev(inv, store.device))
+    elif from_fmt == 'wide':
+        parent, elemc, actor, visible, visidx = _mirror_unpack_wide(
+            mir['w1'], mir['w2'], mir['w3'])
+    else:
+        parent, elemc, actor, visible, visidx = (
+            mir['parent'], mir['elemc'], mir['actor'], mir['visible'],
+            mir['vis_index'])
+    base = {'cap': mir['cap'], 'n': mir['n'], 'pos_row': mir['pos_row']}
+    # the order index is format-independent (tree_pos per node): it
+    # carries through packed<->wide conversions untouched, so idx_ok
+    # claims survive a format crossing; the cols fallback drops it (no
+    # incremental program there — the caller resets idx_ok)
+    if to_fmt in ('packed', 'wide') and 'tp' in mir:
+        base['tp'] = mir['tp']
+    if to_fmt == 'packed':
+        ranks = np.asarray(store.actor_str_ranks())
+        w1, w2 = _mirror_pack(parent, elemc, actor, visible, visidx,
+                              _rank_table(store, opts))
+        return {'fmt': 'packed', 'w1': w1, 'w2': w2,
+                'ranks': ranks.copy(), **base}
+    if to_fmt == 'wide':
+        w1, w2, w3 = _mirror_pack_wide(parent, elemc, actor, visible,
+                                       visidx)
+        return {'fmt': 'wide', 'w1': w1, 'w2': w2, 'w3': w3,
+                'rank_n': n_act, 'rank_table': _rank_table(store, opts),
+                **base}
+    return {'fmt': 'cols',
+            'parent': parent, 'elemc': elemc, 'actor': actor,
+            'visible': visible, 'vis_index': visidx,
+            'rank_n': n_act, 'rank_table': _rank_table(store, opts),
+            **base}
 
 
 # Estimated device bytes per resident mirror row, by format: packed =
@@ -2073,8 +2752,9 @@ class GeneralPatch:
         # edit-stream kernel already compacted each class in document
         # order on device — the loop below just slices delta-sized
         # buffers (no per-object argsorts, no O(doc) node-row gather).
-        # Host path (CPU stores only, with _EDIT_STREAM not True; the
-        # tests' A/B arm): unpack the full vis planes and re-derive.
+        # Host path (CPU stores with _EDIT_STREAM not True, and every
+        # windowed apply, whose planes are the suffix window only):
+        # unpack the vis planes and re-derive.
         def fis_of(nodes, lo, span):
             # node ids -> field-row ids within one object's ef span
             # (-1 = node has no field row)
@@ -2124,7 +2804,8 @@ class GeneralPatch:
                     'set_fis': fis_of(set_nodes, lo, span),
                 }
         elif planes is not None:
-            # host read path (CPU store, forced-off edit stream):
+            # host read path (CPU store, forced-off edit stream, or a
+            # windowed apply):
             # ONE plane fetch, then O(m) vectorized masks + O(delta)
             # sorts/lookups per dirty object — no more O(doc)
             # node-row gathers or full field_at tables (the pre-index
@@ -2135,32 +2816,41 @@ class GeneralPatch:
             if raw.get('vis_fmt') == 'packed':
                 pv, nv, pi, ni = unpack_vis_word(
                     np.asarray(planes).view(np.uint32))
+            elif raw.get('vis_fmt') == 'wide':
+                pv, pi = unpack_wide_word(np.asarray(planes[0]))
+                nv, ni = unpack_wide_word(np.asarray(planes[1]))
             else:
                 pv, nv, pi, ni = [np.asarray(x) for x in planes]
             dirty, n_j = raw['dirty'], raw['dirty_n']
             gained = raw['gained_max_elem']
             ps_sorted, ps_row = raw['pos_snap']
+            win_ws = raw.get('win_ws')
             for ji, obj_row in enumerate(dirty.tolist()):
                 n = int(n_j[ji])
+                # windowed apply: plane column c is node local ws + c
+                # (the renumber only shipped the suffix window; the
+                # indexes IN the plane words stay absolute)
+                wsj = int(win_ws[ji]) if win_ws is not None else 0
                 new_vis = nv[ji, :n]
                 new_idx = ni[ji, :n].astype(np.int32)
                 prev_idx = pi[ji, :n].astype(np.int32)
                 was_vis = pv[ji, :n]
                 lo, hi = np.searchsorted(ef_obj, [obj_row, obj_row + 1])
                 span = ef_node[lo:hi]
+                sp = span - wsj if wsj else span
                 removes = np.flatnonzero(was_vis & ~new_vis)
                 rm_old = -np.sort(-prev_idx[removes])
                 ins_cols = np.flatnonzero(new_vis & ~was_vis)
                 ins_cols = ins_cols[np.argsort(new_idx[ins_cols],
                                                kind='stable')]
-                ins_nodes = ins_cols
+                ins_nodes = ins_cols + wsj
                 # sets only exist among TOUCHED nodes: intersect the
                 # delta-sized touched span instead of a full mask
-                tn = span[(new_vis[span] & was_vis[span])] \
-                    if len(span) else span
+                tn = sp[(new_vis[sp] & was_vis[sp])] \
+                    if len(sp) else sp
                 set_cols = tn[np.argsort(new_idx[tn],
                                          kind='stable')]
-                set_nodes = set_cols
+                set_nodes = set_cols + wsj
                 rowsq = ps_row[np.searchsorted(
                     ps_sorted,
                     (np.int64(obj_row) << 32) | ins_nodes)]
@@ -2374,13 +3064,114 @@ def apply_general_block(store, block, options=None, return_timing=False):
             raise
 
 
+class AsyncGeneralPatch:
+    """Future over an applier-thread apply: resolves to the real
+    :class:`GeneralPatch` (or re-raises the apply's error — the store
+    itself rolled back and stays usable). Read methods proxy through
+    :meth:`result`."""
+
+    __slots__ = ('_event', '_patch', '_error')
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._patch = None
+        self._error = None
+
+    def result(self):
+        self._event.wait()
+        if self._error is not None:
+            raise self._error
+        return self._patch
+
+    def block_until_ready(self):
+        return self.result().block_until_ready()
+
+    def diffs(self, d):
+        return self.result().diffs(d)
+
+    def patch(self, d):
+        return self.result().patch(d)
+
+    def to_patches(self):
+        return self.result().to_patches()
+
+
 def apply_general_block_async(store, block, options=None):
-    """The applier-thread apply of the reference (patch extraction of
-    earlier applies overlapping this block's staging) is not ported
-    yet (ROADMAP A.4)."""
-    raise NotImplementedError(
-        'the async general apply is not ported yet (ROADMAP A.4); use '
-        'apply_general_block')
+    """Apply on the store's applier thread: the caller overlaps patch
+    EXTRACTION of earlier applies (diff materialization is the
+    remaining host cost once staging went native) with the staging +
+    dispatch of this block — the card never idles behind a host that is
+    busy reading patches.
+
+    Returns an :class:`AsyncGeneralPatch`. Successive async applies are
+    serialized by the applier queue; a failed apply rolls the store
+    back (same contract as the sync path) and surfaces its error on the
+    future. Synchronous `apply_general_block` calls interleave safely
+    (the host lock serializes store mutation) but their ordering
+    relative to queued async applies is the queue's; drain first
+    (:func:`drain_general`) when order matters. Whole-store readers
+    (materialize, snapshots) should also drain first."""
+    import queue
+    out = AsyncGeneralPatch()
+    with store._host_lock:       # two first-callers must not both init
+        if getattr(store, '_applier', None) is None:
+            jobs = store._jobs = queue.Queue()
+
+            def run(jobs=jobs):
+                # closes over the QUEUE, not the store: a dropped store
+                # is collectable even while its idle applier lingers
+                while True:
+                    j = jobs.get()
+                    if j is None:
+                        return
+                    j()
+
+            store._applier = threading.Thread(target=run, daemon=True)
+            store._applier.start()
+
+    def job():
+        try:
+            out._patch = apply_general_block(store, block, options)
+        except BaseException as e:     # surfaced on result()
+            out._error = e
+        finally:
+            out._event.set()
+
+    with store._host_lock:
+        if getattr(store, '_jobs', None) is None:
+            # a concurrent close_general stopped the applier between
+            # our init check and this put: restart it
+            return apply_general_block_async(store, block, options)
+        store._jobs.put(job)
+        store._last_async = out
+    return out
+
+
+def drain_general(store):
+    """Wait for every queued async apply (queue order; waiting on the
+    last suffices). Does NOT raise for failed applies — each failure
+    belongs to its own future, and the store rolled back past it.
+    Safe to call from several threads: everyone waits; the record
+    clears only after the wait completes."""
+    p = getattr(store, '_last_async', None)
+    if p is not None:
+        p._event.wait()
+        if getattr(store, '_last_async', None) is p:
+            store._last_async = None
+
+
+def close_general(store):
+    """Drain and stop the store's applier thread. The store remains
+    fully usable synchronously; a later async apply restarts it."""
+    drain_general(store)
+    with store._host_lock:
+        applier = getattr(store, '_applier', None)
+        if applier is None:
+            return
+        store._jobs.put(None)
+        store._applier = None
+        store._jobs = None
+    applier.join()
 
 
 def _apply_general(store, block, options, return_timing, txn=None):
@@ -2769,6 +3560,7 @@ def _apply_general(store, block, options, return_timing, txn=None):
             pool.idx_ok[:] = False
             metrics.bump('device_idx_invalidations')
     use_packed = fmt == 'packed'
+    incr = None                  # set by the packed/wide dispatches
 
     if mir is None:
         # first resident apply: EVERY node is this apply's delta — the
@@ -2872,6 +3664,12 @@ def _apply_general(store, block, options, return_timing, txn=None):
                                    np.packbits(del_arr)])
     t2 = time.perf_counter()
 
+    # suffix-window state: set by the incr dispatch branches when the
+    # renumber was bounded to per-job suffix windows (m_eff < m_pad)
+    m_eff = m_pad
+    win_ws = None
+    win_nj = None
+
     dev = store.device
     if use_packed:
         ranks = np.asarray(store.actor_str_ranks())
@@ -2935,25 +3733,68 @@ def _apply_general(store, block, options, return_timing, txn=None):
             assert o == len(wire)
 
         tpm = _mirror_tp_in(mir, cap, n_total, dev)
-        _pick_incremental(pool, dirty)
-        # shape-signature registry: every distinct signature is one
-        # shape bucket of the packed program (device/profiler.py)
-        _profiler.note_dispatch(
-            'general.fused_packed',
-            (cap, sizes, S, A, m_pad, has_remap,
-             int(remap_dev.shape[0]) if has_remap else 1, n_old > 0),
-            rows=n_pad)
-        # the whole staged wire crosses as ONE host-to-device copy
-        outs = _fused_general_packed(
-            w1m, w2m, tpm, _dev(wire, dev), n_old, n_rows, remap_dev,
-            sizes=sizes, num_segments=S, a_pad=A, m_pad=m_pad,
-            has_remap=has_remap, has_old=n_old > 0)
-        w1o, w2o, tpo = outs[0], outs[1], outs[2]
-        surv_u8_dev, winner_dev = outs[3], outs[4]
-        vis_planes = outs[5] if len(dirty) else None
-        if len(dirty):
-            # the rebuild just (re)wrote these objects' index
-            pool.idx_ok[dirty] = True
+        incr = _pick_incremental(
+            pool, mir, dirty, n_j, nof_pre, mel_pre, n_old, n_total,
+            m_pad, opts,
+            parent_d=(wire[:4 * d_pad].view(np.int32) >> 16)
+            if native_wire else d_parent,
+            elemc_d=wire[4 * i32_n:4 * i32_n + 2 * d_pad]
+            .view(np.int16) if native_wire else d_elemc)
+        n_remap = int(remap_dev.shape[0]) if has_remap else 1
+        if incr is not None:
+            dm_pad, jd_base, min_rp = incr
+            ob = 4 * 2 * d_pad
+            rs_v = wire[ob:ob + 4 * n_pad].view(np.int32)
+            ob = 4 * (2 * d_pad + n_pad + nnz_pad)
+            js_v = wire[ob:ob + 4 * K].view(np.int32)
+            jn_v = wire[ob + 4 * K:ob + 8 * K].view(np.int32)
+            win, ws_k = _pick_window(lin_pre, dirty, n_j, jd_base, min_rp,
+                                     rs_v, js_v, jn_v, m_pad, n_rows, K,
+                                     opts)
+            if win is not None:
+                m_eff, ws_k, jd_base, win_nj = win
+                win_ws = ws_k[:len(dirty)].copy()
+                if not native_wire:
+                    # the rewrite went through the wire views; keep the
+                    # numpy staging arrays (capture parity) in step
+                    row_slot[:] = rs_v
+                    job_start[:] = js_v
+                    n_j_arr[:] = jn_v
+            jd = np.zeros(K, np.int32)
+            jd[:len(dirty)] = jd_base
+            _profiler.note_dispatch(
+                'general.fused_incr',
+                ('packed', cap, sizes, S, A, m_eff, dm_pad, has_remap,
+                 n_remap),
+                rows=n_pad)
+            # the staged wire (rewritten for the window above) crosses
+            # as ONE host-to-device copy
+            outs = _fused_general_incr(
+                w1m, w2m, None, tpm, _dev(wire, dev), _dev(jd, dev),
+                _dev(ws_k, dev), n_old, n_rows, remap_dev,
+                fmt='packed', sizes=sizes, num_segments=S, a_pad=A,
+                m_pad=m_eff, dm_pad=dm_pad, has_remap=has_remap)
+            w1o, w2o, tpo = outs[0], outs[1], outs[3]
+            surv_u8_dev, winner_dev = outs[4], outs[5]
+            vis_planes = outs[6] if len(dirty) else None
+        else:
+            # shape-signature registry: every distinct signature is one
+            # shape bucket of the packed program (device/profiler.py)
+            _profiler.note_dispatch(
+                'general.fused_packed',
+                (cap, sizes, S, A, m_pad, has_remap, n_remap, n_old > 0),
+                rows=n_pad)
+            # the whole staged wire crosses as ONE host-to-device copy
+            outs = _fused_general_packed(
+                w1m, w2m, tpm, _dev(wire, dev), n_old, n_rows, remap_dev,
+                sizes=sizes, num_segments=S, a_pad=A, m_pad=m_pad,
+                has_remap=has_remap, has_old=n_old > 0)
+            w1o, w2o, tpo = outs[0], outs[1], outs[2]
+            surv_u8_dev, winner_dev = outs[3], outs[4]
+            vis_planes = outs[5] if len(dirty) else None
+            if len(dirty):
+                # the rebuild just (re)wrote these objects' index
+                pool.idx_ok[dirty] = True
         pool.mirror = {
             'fmt': 'packed', 'cap': cap, 'n': n_total,
             'w1': w1o, 'w2': w2o, 'tp': tpo, 'ranks': ranks.copy(),
@@ -2961,10 +3802,114 @@ def _apply_general(store, block, options, return_timing, txn=None):
         }
         vis_fmt = 'packed'
     elif fmt == 'wide':
-        raise NotImplementedError(
-            'this apply needs the wide mirror format (a tree past 32767 '
-            'nodes, elemc or seq past 32767), which is not ported yet '
-            '(ROADMAP A.4)')
+        if mir is None:
+            w1m, w2m, w3m = (torch.zeros(cap, dtype=_I32, device=dev)
+                             for _ in range(3))
+        elif mir['cap'] < n_total:
+            pad = torch.zeros(cap - mir['cap'], dtype=_I32, device=dev)
+            w1m, w2m, w3m = (torch.cat([mir[k], pad])
+                             for k in ('w1', 'w2', 'w3'))
+        else:
+            w1m, w2m, w3m = mir['w1'], mir['w2'], mir['w3']
+        # actor -> string-rank table, re-shipped only when it grew (the
+        # wide words carry stable actor ids, never ranks)
+        if mir is None or mir.get('rank_n') != n_act:
+            rank_table_dev = _rank_table(store, opts)
+        else:
+            rank_table_dev = mir['rank_table']
+
+        sizes = (d_pad, n_pad, K, nnz_pad)
+        wire = np.empty(_wire_sizes_wide(*sizes), np.uint8)
+        i32_n = 3 * d_pad + 2 * n_pad + 2 * nnz_pad + 2 * K
+        if native_wire:
+            # C++ writes every section except the three admission-clock
+            # COO sections, which only the admission layer knows
+            ns.fill_wire_wide(wire, cap, d_pad, n_pad, K, nnz_pad,
+                              m_pad)
+            o = 4 * (3 * d_pad + 2 * n_pad)
+            wire[o:o + 4 * nnz_pad].view(np.int32)[:] = coo_row
+            o += 4 * nnz_pad
+            wire[o:o + 4 * nnz_pad].view(np.int32)[:] = coo_val
+            o = 4 * i32_n + d_pad + n_pad + 2 * (n_pad >> 3)
+            wire[o:o + nnz_pad] = coo_col.view(np.uint8)
+        else:
+            actor1_new = d_actor + 1          # head (-1) -> 0
+            w1_new = (d_parent << _WIDE_PARENT_SHIFT) | \
+                (actor1_new & _WIDE_ALO_MASK)
+            seq32 = seq_arr.astype(np.int32)
+            coo_val32 = coo_val.astype(np.int32)
+            o = 0
+            for arr in (w1_new, d_elemc, d_pos, row_slot, seq32,
+                        coo_row, coo_val32, job_start, n_j_arr):
+                nb_ = 4 * len(arr)
+                wire[o:o + nb_].view(np.int32)[:] = arr
+                o += nb_
+            for arr in ((actor1_new >> 10).astype(np.uint8), actor_arr,
+                        flags_u8, coo_col):
+                wire[o:o + len(arr)] = arr.view(np.uint8)
+                o += len(arr)
+            assert o == len(wire)
+
+        tpm = _mirror_tp_in(mir, cap, n_total, dev)
+        incr = _pick_incremental(
+            pool, mir, dirty, n_j, nof_pre, mel_pre, n_old, n_total,
+            m_pad, opts,
+            parent_d=((wire[:4 * d_pad].view(np.int32)
+                       >> _WIDE_PARENT_SHIFT) & _WIDE_IDX_MASK)
+            if native_wire else d_parent,
+            elemc_d=wire[4 * d_pad:8 * d_pad].view(np.int32)
+            if native_wire else d_elemc)
+        if incr is not None:
+            dm_pad, jd_base, min_rp = incr
+            ob = 4 * 3 * d_pad
+            rs_v = wire[ob:ob + 4 * n_pad].view(np.int32)
+            ob = 4 * (3 * d_pad + 2 * n_pad + 2 * nnz_pad)
+            js_v = wire[ob:ob + 4 * K].view(np.int32)
+            jn_v = wire[ob + 4 * K:ob + 8 * K].view(np.int32)
+            win, ws_k = _pick_window(lin_pre, dirty, n_j, jd_base, min_rp,
+                                     rs_v, js_v, jn_v, m_pad, n_rows, K,
+                                     opts)
+            if win is not None:
+                m_eff, ws_k, jd_base, win_nj = win
+                win_ws = ws_k[:len(dirty)].copy()
+                if not native_wire:
+                    row_slot[:] = rs_v
+                    job_start[:] = js_v
+                    n_j_arr[:] = jn_v
+            jd = np.zeros(K, np.int32)
+            jd[:len(dirty)] = jd_base
+            _profiler.note_dispatch(
+                'general.fused_incr',
+                ('wide', cap, sizes, S, A, m_eff, dm_pad,
+                 int(rank_table_dev.shape[0])),
+                rows=n_pad)
+            outs = _fused_general_incr(
+                w1m, w2m, w3m, tpm, _dev(wire, dev), _dev(jd, dev),
+                _dev(ws_k, dev), n_old, n_rows, rank_table_dev,
+                fmt='wide', sizes=sizes, num_segments=S, a_pad=A,
+                m_pad=m_eff, dm_pad=dm_pad, has_remap=False)
+        else:
+            _profiler.note_dispatch(
+                'general.fused_wide',
+                (cap, sizes, S, A, m_pad, int(rank_table_dev.shape[0]),
+                 n_old > 0),
+                rows=n_pad)
+            outs = _fused_general_wide(
+                w1m, w2m, w3m, tpm, _dev(wire, dev), n_old, n_rows,
+                rank_table_dev, sizes=sizes, num_segments=S, a_pad=A,
+                m_pad=m_pad, has_old=n_old > 0)
+            if len(dirty):
+                pool.idx_ok[dirty] = True
+        w1o, w2o, w3o, tpo = outs[0], outs[1], outs[2], outs[3]
+        surv_u8_dev, winner_dev = outs[4], outs[5]
+        vis_planes = (outs[6], outs[7]) if len(dirty) else None
+        pool.mirror = {
+            'fmt': 'wide', 'cap': cap, 'n': n_total,
+            'w1': w1o, 'w2': w2o, 'w3': w3o, 'tp': tpo,
+            'rank_n': n_act, 'rank_table': rank_table_dev,
+            'pos_row': pool.pos_row,  # replaced-on-append: stable ref
+        }
+        vis_fmt = 'wide'
     else:
         if mir is None:
             m_cols = (torch.zeros(cap, dtype=_I32, device=dev),
@@ -3028,7 +3973,7 @@ def _apply_general(store, block, options, return_timing, txn=None):
     pool._epoch += 1
     _update_mirror_gauges(fmt, cap)
     if _STAGE_CAPTURE is not None:
-        if native_wire:
+        if native_wire and use_packed:
             # the staged planes live in the wire buffer — expose them
             # through views at the layout offsets
             o_rs = 4 * (2 * d_pad)
@@ -3039,16 +3984,28 @@ def _apply_general(store, block, options, return_timing, txn=None):
             cap_actor = wire[o_ac:o_ac + n_pad]
             cap_flags = wire[o_ac + n_pad:
                              o_ac + n_pad + 2 * (n_pad >> 3)]
+        elif native_wire:                      # wide wire layout
+            o_rs = 4 * (3 * d_pad)
+            cap_slot = wire[o_rs:o_rs + 4 * n_pad].view(np.int32)
+            cap_seq = wire[o_rs + 4 * n_pad:
+                           o_rs + 8 * n_pad].view(np.int32)
+            o_ac = 4 * i32_n + d_pad
+            cap_actor = wire[o_ac:o_ac + n_pad]
+            cap_flags = wire[o_ac + n_pad:
+                             o_ac + n_pad + 2 * (n_pad >> 3)]
         else:
             cap_slot = row_slot
-            cap_seq = seq_arr
+            # the wide wire carries seq as int32 — expose the same
+            # dtype so the native/numpy parity gate compares like
+            cap_seq = seq_arr.astype(np.int32) if fmt == 'wide' \
+                else seq_arr
             cap_actor, cap_flags = actor_arr, flags_u8
         _STAGE_CAPTURE({
             'ops_actor': cap_actor, 'ops_seq': cap_seq,
             'ops_slot': cap_slot, 'flags_u8': cap_flags,
             'n_rows': n_rows, 'coo_row': coo_row, 'coo_col': coo_col,
             'coo_val': coo_val, 'num_segments': S, 'a_pad': A,
-            'm_pad': m_pad, 'surv_u8': surv_u8_dev,
+            'm_pad': m_eff, 'surv_u8': surv_u8_dev,
             'winner': winner_dev, 'vis_fmt': vis_fmt,
             'vis_planes': vis_planes, 'variant': fmt})
     t3 = time.perf_counter()
@@ -3064,7 +4021,11 @@ def _apply_general(store, block, options, return_timing, txn=None):
         _profiler.record_phases(
             (t1 - t0) * 1e3, (t2 - t1 - (tc1 - tc0)) * 1e3,
             (t3 - t2) * 1e3, t_dev,
-            (time.perf_counter() - t0) * 1e3)
+            (time.perf_counter() - t0) * 1e3,
+            # the index update is FUSED into the apply program, so its
+            # attribution is the fenced run time of the incremental
+            # variant (its own series; rebuild-path run time stays out)
+            idx_ms=t_dev if incr is not None else None)
 
     # ---- unpack: lazy patch wiring + DEFERRED entry commit ----
     # `cat` holds the UNPERMUTED row columns plus `order` (the
@@ -3127,11 +4088,17 @@ def _apply_general(store, block, options, return_timing, txn=None):
         'cat': cat, 'order': order, 'vis_fmt': vis_fmt,
         'r_seg': r_seg, 's_rows': None, 'vis_planes': vis_planes,
         'dirty': dirty, 'rows_flat': rows_flat_thunk,
-        'dirty_n': n_j,
+        # windowed applies hand the patch read the suffix planes: the
+        # per-job window base maps plane column c to absolute node
+        # local win_ws[j] + c, and dirty_n shrinks to the window
+        # sizes. e_pad = 0 pins the read to the host-unpack branch
+        # (the edit stream ranks by dense indexes over whole planes).
+        'dirty_n': n_j if win_ws is None else win_nj,
+        'win_ws': win_ws,
         # edit-stream read geometry: the patch-read kernel compacts
         # this tick's edits into [K, e_pad] buffers (edits are bounded
         # by the resolved row count, never the tree size)
-        'm_pad': m_pad, 'e_pad': opts._pad(
+        'm_pad': m_eff, 'e_pad': 0 if win_ws is not None else opts._pad(
             None, max(min(m_pad, n_rows), 1), 'edit_pad'),
         'pos_snap': pos_snap,
         # per-object maxElem SNAPSHOT at apply time: a pipelined reader
@@ -3189,6 +4156,13 @@ def _apply_general(store, block, options, return_timing, txn=None):
                            (t2 - t1 - (tc1 - tc0)) * 1e3,
                            native=ns is not None)
         metrics.span_event('device.dispatch', (t3 - t2) * 1e3)
+        if incr is not None:
+            # the incremental index update gets its own trace lane: the
+            # dispatch wall of the merge-pass program, with the delta
+            # size attached
+            metrics.span_event('device.idx_update', (t3 - t2) * 1e3,
+                               delta=int(n_total - n_old),
+                               jobs=len(dirty))
     if return_timing:
         return patch, {'admit': t1 - t0, 'pack': t2 - t1,
                        'commit_wait': tc1 - tc0,

@@ -31,9 +31,15 @@ from the raw planes; wider rows take the PyTorch sort and then the wide
 kernel for steps 2-4.
 
 Node 0 is the virtual ``'_head'`` element; padding slots carry
-``valid=False`` and sort to the end. The delta orderer behind the
-incremental index (``_rga_delta_order*``) belongs to the incremental
-slice and is not ported yet (ROADMAP A.4).
+``valid=False`` and sort to the end.
+
+The delta orderer behind the incremental index update
+(:func:`_rga_delta_order_batched`) orders one tick's new nodes among
+themselves: the same steps 1-3 with the anchor (the old tree position of
+a delta root's real parent) as one more sort key. Its plain version is
+:func:`_rga_delta_order_plain`; on CUDA tensors it launches the RGA
+kernel's delta mode (narrow planes) or the PyTorch sort and the wide
+kernel.
 """
 
 import torch
@@ -167,9 +173,11 @@ def _order_from_sorted_plain(order, parent_adj, parent, visible, valid):
             'node_at_pos': node_at_pos.to(_I32), 'length': length}
 
 
-def _child_sort(parent, elem, actor, valid):
+def _child_sort(parent, elem, actor, valid, anchor=None):
     """Step 1 over [K, n] planes: the stable sort of the children into
-    (parent asc, elem desc, actor desc). Returns int64 ``(order,
+    (parent asc, elem desc, actor desc) — with ``anchor`` (the delta
+    orderer), (parent asc, anchor asc, elem desc, actor desc), where the
+    anchor counts for children of node 0 only. Returns int64 ``(order,
     parent_adj, parent)``; ``parent_adj`` is the sort's parent key, with
     the head and the padding bucketed at n."""
     K, n = parent.shape
@@ -180,8 +188,11 @@ def _child_sort(parent, elem, actor, valid):
     # it never receives sibling links of its own
     parent_adj = torch.where(valid.to(torch.bool) & (idx != 0), parent,
                              torch.full_like(parent, n))
-    order = _stable_lexsort((-actor.to(torch.int64),
-                             -elem.to(torch.int64), parent_adj))
+    keys = [-actor.to(torch.int64), -elem.to(torch.int64)]
+    if anchor is not None:
+        keys.append(torch.where(parent_adj == 0, anchor.to(torch.int64),
+                                torch.zeros_like(parent_adj)))
+    order = _stable_lexsort((*keys, parent_adj))
     return order, parent_adj, parent
 
 
@@ -219,6 +230,55 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     return cuda_sequence.order_from_sorted_cuda(
         *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
         *flags, rounds=rounds)
+
+
+def _rga_delta_order_plain(parent, anchor, elem, actor, valid):
+    """DFS order of one tick's delta forest over [K, n] planes — the
+    small companion of the RGA order behind the incremental index update
+    (``general._fused_general_incr``): the tick's new nodes order among
+    THEMSELVES here, then splice into the persistent index with one
+    prefix-sum merge.
+
+    Slot 0 is a virtual head standing in for the ENTIRE existing tree; a
+    delta node whose parent existed before this tick (a delta root) is a
+    child of that head and carries the OLD tree position of its real
+    parent as ``anchor``. Children of the head sort by (anchor asc, elem
+    desc, actor desc), children of delta nodes by the ordinary RGA key.
+    Valid only under the front-insert precondition the caller checks on
+    the host. Returns int32 ``tree_pos`` [K, n]: 0 for the head, 1..count
+    for delta nodes in their final relative order (padding rows carry
+    garbage). The plain version of the kernel's delta mode."""
+    order, parent_adj, parent64 = _child_sort(parent, elem, actor, valid,
+                                              anchor)
+    return _thread_and_rank(parent64, parent_adj, order,
+                            valid.to(torch.bool))
+
+
+def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
+    """Batched delta ordering over [K, n] planes (parent, anchor, elem,
+    actor int32; valid bool). Returns int32 ``tree_pos`` [K, n], equal to
+    the JAX `_rga_delta_order_batched` on every valid row.
+
+    CUDA planes always go through a kernel (a build or launch failure
+    raises): the narrow RGA kernel's delta mode up to
+    ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort with the
+    anchor key and the wide kernel. CPU planes take
+    `_rga_delta_order_plain`."""
+    if parent.device.type != 'cuda':
+        return _rga_delta_order_plain(parent, anchor, elem, actor, valid)
+    m = parent.shape[1]
+    rounds = _ceil_log2(m) + 1
+    valid = valid.to(torch.bool).contiguous()
+    if m <= cuda_sequence.M_NARROW:
+        return cuda_sequence.rga_delta_cuda(
+            *(t.to(_I32).contiguous() for t in (parent, anchor, elem,
+                                                 actor)),
+            valid, rounds=rounds)
+    order, parent_adj, parent = _child_sort(parent, elem, actor, valid,
+                                            anchor)
+    return cuda_sequence.order_from_sorted_cuda(
+        *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
+        valid, valid, rounds=rounds)['tree_pos']
 
 
 def _rga_order(parent, elem, actor, visible, valid):

@@ -330,15 +330,11 @@ class GeneralDocSet:
                 return doc
             raise ValueError(
                 'handle belongs to a different GeneralDocSet')
-        backend = doc._options.get('backend')
-        if backend is None:
-            raise NotImplementedError(
-                'adopting a document needs its backend; the host oracle '
-                'backend (backend/) is not ported yet (ROADMAP A.1)')
+        from .doc_set import backend_of as _backend_of
         state = Frontend.get_backend_state(doc)
         idx = self.id_of.get(doc_id)
         have = self.store.clock_of(idx) if idx is not None else {}
-        changes = backend.get_missing_changes(state, have)
+        changes = _backend_of(doc).get_missing_changes(state, have)
         return self.apply_changes(doc_id, changes)
 
     setDoc = set_doc
@@ -1220,7 +1216,9 @@ class GeneralDocSet:
         straight from the view cache; all dirty docs rebuild in ONE
         vectorized pass over the entry columns (:meth:`_build_batch`).
         Returns trees aligned with ``doc_ids``. Views are shared with
-        the cache — treat them as immutable."""
+        the cache — treat them as immutable. Whole-fleet readers
+        should drain pending async applies first
+        (:func:`~..device.general.drain_general`)."""
         store = self.store
         idxs = []
         for doc_id in doc_ids:

@@ -20,7 +20,12 @@ exits non-zero without a result line):
    both sides of ``M_NARROW``, (64, 4096) and (2, 40000) — through the
    dispatch (narrow kernel, or sort + wide kernel, the last shape on
    its global-memory variant) and, up to m = 512, both kernels
-   directly; the flat-map resolve's dispatch and both its variants
+   directly; the RGA kernel's delta mode on seeded delta forests
+   (anchors up to 2^22 - 1, elems past 2^15) at widths 9, 33, 129 and
+   513 (the last through the sort with the anchor key + wide kernel);
+   the edit stream's wide format at a long text's width (m past 32,768,
+   the block variant) and at m <= 512 (the warp variant); the flat-map
+   resolve's dispatch and both its variants
    (warp and block, forced) on ``gen_docset_workload(cross_clock=True)``
    batches up to the flagship 10,240 docs x 128 ops x 8 actors and
    10,241 docs, and a 6,000-segment shape on the block variant's global
@@ -32,7 +37,20 @@ exits non-zero without a result line):
    document) and ``materialize_all``; the same two ticks on the CPU (a
    seeded subset of documents in a fleet of their own) must give equal
    views, and the edit-stream and RGA kernels' launch counters must rise
-   on every tick;
+   on every tick; tick 2 (a concurrent front insert) must take the
+   incremental index update through the RGA kernel's delta mode;
+   4b. a long text (the JAX package's ``bench.py:971`` lane at 32,760
+   chars, then 48 ticks of 8 appended chars with a delete every 5th)
+   through ``GeneralDocSet(device='cuda')`` in two arms — incremental
+   index + suffix window, and ``_INDEX_MODE='rebuild'`` +
+   ``_WINDOW_MODE='off'`` — each apply's diffs and text checked against
+   a ``device='cpu'`` run and the host-built string; the store must
+   cross packed -> wide once, every tick after the 8th must be
+   incremental and windowed, and the wide edit stream and the delta
+   mode must launch; the p50 and p90 tick time of each arm;
+   4c. the async apply: two long-text blocks through
+   ``apply_general_block_async`` + ``drain_general`` give the sync
+   apply's patches;
 5. the per-doc device backend: ``DeviceDocSet(device='cuda')
    .apply_changes_batch`` on a 10,240-document map-only fleet (8
    concurrent actors x 16 set/del ops over 32 keys per document,
@@ -40,24 +58,28 @@ exits non-zero without a result line):
    (the tick-1 documents above: the fused step and its RGA kernel); the
    documents must equal ``DeviceDocSet(device='cpu')`` on a seeded
    768-document subset and the host oracle ``DocSet`` on 64;
-6. one more general tick under ``torch.profiler``: device busy time
-   against the tick's wall time (the idle share) and the kernels that
-   take it;
-7. every main-path input (raw planes as the paths hand them over)
-   through each kernel against its plain version, and the variant each
-   path ran; timings at the main path's shapes: each kernel's device
-   time (50 launches captured in a CUDA graph, median, min and max of 5
-   replays), the edit-stream call and the whole RGA step as a caller
-   pays them (eager, 5 x 50 calls), beside the bound, the plain version
-   and the card's name and power limit; the JSON kernel line (with each
-   kernel's variant); then the result line.
+6. one more general tick under ``torch.profiler`` (it re-inserts
+   elems the fleet already has, so it must fall back to the rebuild):
+   device busy time against the tick's wall time (the idle share) and
+   the kernels that take it;
+7. for every launch key (kernel, mode, variant) the main paths launched
+   (phases 4, 4b and 5): every input the paths handed that launch, as
+   they handed it over, through the dispatch (which must take exactly
+   that launch) against the plain version, bit for bit; then, at the
+   largest of those inputs, the kernel's device time (50 launches
+   captured in a CUDA graph, median, min and max of 5 replays), the
+   dispatch called eagerly and the plain version, beside the byte bound
+   and the card's name and power limit; the JSON kernel line (one row
+   per launch key); then the result line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after it. The workload generators (``gen_mixed_docs``,
 ``gen_tick2``, ``random_planes``, ``random_trees``, ``prepend_trees``,
-``chain_trees``, ``wide_key_trees``) are shared with the tests.
+``chain_trees``, ``wide_key_trees``, ``delta_forests``, ``wide_planes``,
+``long_text_applies``) are shared with the tests.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -255,6 +277,53 @@ TREES = {'random': random_trees, 'prepend': prepend_trees,
          'chain': chain_trees}
 
 
+def delta_forests(rng, K, m):
+    """Seeded [K, m] delta planes of the incremental index update
+    (int32 parent/anchor/elem/actor, bool valid): slot 0 is the virtual
+    head; row k holds d_k delta nodes, each either a delta root (parent
+    0, an anchor up to 2^22 - 1, ties between roots included) or a child
+    of an earlier delta node (anchor 0), with Lamport counters past 2^15
+    (ties included) and actor ranks; the rest of the row is padding with
+    garbage parents and anchors. The first row is full and, when K > 2,
+    the last holds the head alone."""
+    parent = rng.integers(-3, m + 3, (K, m)).astype(np.int32)
+    anchor = rng.integers(0, 1 << 22, (K, m)).astype(np.int32)
+    elem = rng.integers(1 << 15, 1 << 20, (K, m)).astype(np.int32)
+    actor = rng.integers(0, 5, (K, m)).astype(np.int32)
+    valid = np.zeros((K, m), bool)
+    d = rng.integers(0, m, K)
+    d[0] = m - 1
+    if K > 2:
+        d[-1] = 0
+    parent[:, 0] = anchor[:, 0] = elem[:, 0] = actor[:, 0] = 0
+    anchor[:, 1:2] = (1 << 22) - 1
+    for k in range(K):
+        dk = int(d[k])
+        valid[k, :dk + 1] = True
+        if dk < 1:
+            continue
+        j = np.arange(1, dk + 1)
+        root = (rng.random(dk) < 0.4) | (j == 1)
+        parent[k, 1:dk + 1] = np.where(
+            root, 0, (rng.random(dk) * (j - 1)).astype(np.int32) + 1)
+        same = rng.random(dk) < 0.3          # tie with the previous anchor
+        anchor[k, 2:dk + 1] = np.where(same[1:], anchor[k, 1:dk],
+                                       anchor[k, 2:dk + 1])
+        anchor[k, 1:dk + 1] = np.where(root, anchor[k, 1:dk + 1], 0)
+        tie = rng.random(dk) < 0.3
+        elem[k, 2:dk + 1] = np.where(tie[1:], elem[k, 1:dk],
+                                     elem[k, 2:dk + 1])
+    return parent, anchor, elem, actor, valid
+
+
+def wide_planes(pv, nv, pi, ni):
+    """The wide apply's two vis word planes (``visible << 22 | (idx +
+    1)``: prior, new) from :func:`random_planes`' unpacked planes."""
+    prior = (pv.astype(np.int32) << 22) | (pi + 1)
+    new = (nv.astype(np.int32) << 22) | (ni + 1)
+    return prior.astype(np.int32), new.astype(np.int32)
+
+
 def _card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -371,6 +440,96 @@ def _reset_counts(*mods):
         mod.reset_launches()
 
 
+def _total(mod):
+    """All launches of a kernel module's counter since its reset."""
+    return sum(mod.launches.values())
+
+
+def _launch_counts():
+    """Every kernel module's launches since its reset, by launch key
+    (kernel, mode, variant)."""
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    return {(name, *k): n
+            for name, mod in (('edit_stream', cuda_view),
+                              ('rga_order', cuda_sequence),
+                              ('flatmap_resolve', cuda_merge))
+            for k, n in mod.launches.items()}
+
+
+def _added(after, before):
+    """The launch counts ``after`` holds beyond ``before``."""
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n > before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def _capturing(into):
+    """Wrap the dispatchers through which the main paths reach the
+    kernels, so that the inputs of every call on CUDA tensors land in
+    ``into[key]`` as (kind, args), ``key`` being the launch the call
+    takes (kernel, mode, variant): the edit stream's
+    ``dispatch_edit_stream`` ('es'), the RGA order's
+    ``_rga_order_batched`` as the general engine and the per-doc backend
+    call it ('rga'), the delta orderer ('delta') and the flat-map
+    ``resolve_cuda`` ('fm')."""
+    from automerge_tpu_torch.device import backend as DB
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view, sequence
+    real = {'es': cuda_view.dispatch_edit_stream,
+            'rga': sequence._rga_order_batched,
+            'db_rga': DB._rga_order_batched,
+            'delta': sequence._rga_delta_order_batched,
+            'fm': cuda_merge.resolve_cuda}
+
+    def put(key, kind, args):
+        into.setdefault(key, []).append((kind, args))
+
+    def es(vis_fmt, planes, touched_u8, e_pad):
+        lead = planes if vis_fmt == 'packed' else planes[0]
+        if lead.is_cuda:
+            put(('edit_stream', vis_fmt, cuda_view.variant(lead.shape[1])),
+                'es', (vis_fmt, planes, np.array(touched_u8), e_pad))
+        return real['es'](vis_fmt, planes, touched_u8, e_pad)
+
+    def rga_via(fn):
+        def rga(*a):
+            if a[0].is_cuda:
+                put(('rga_order', 'order',
+                     cuda_sequence.variant(a[0].shape[1])), 'rga', a)
+            return fn(*a)
+        return rga
+
+    def delta(*a):
+        if a[0].is_cuda:
+            v = cuda_sequence.variant(a[0].shape[1])
+            put(('rga_order', 'delta' if v == 'narrow' else 'order', v),
+                'delta', a)
+        return real['delta'](*a)
+
+    def fm(*a, **kw):
+        if a[0].is_cuda:
+            N, S, A = a[0].shape[1], kw['num_segments'], a[3].shape[2]
+            put(('flatmap_resolve', 'resolve',
+                 cuda_merge.variant(N, S, A, kw.get('force'))), 'fm',
+                (a, kw))
+        return real['fm'](*a, **kw)
+
+    cuda_view.dispatch_edit_stream = es
+    sequence._rga_order_batched = rga_via(real['rga'])
+    DB._rga_order_batched = rga_via(real['db_rga'])
+    sequence._rga_delta_order_batched = delta
+    cuda_merge.resolve_cuda = fm
+    try:
+        yield into
+    finally:
+        cuda_view.dispatch_edit_stream = real['es']
+        sequence._rga_order_batched = real['rga']
+        DB._rga_order_batched = real['db_rga']
+        sequence._rga_delta_order_batched = real['delta']
+        cuda_merge.resolve_cuda = real['fm']
+
+
 def _bits_err(got, want, where, mask=None):
     """Largest |got - want| over a dict of integer outputs (``mask``
     restricts ``tree_pos`` to valid rows); raises when a dtype or shape
@@ -431,6 +590,295 @@ def _check_rga_kernel(dev):
                   f'(dispatch ran {ran})', flush=True)
 
 
+def _check_delta_kernel(dev):
+    """Phase 3d: the RGA kernel's delta mode against the delta orderer's
+    plain version (tree_pos on valid rows) on seeded delta forests —
+    anchors up to 2^22 - 1, elems past 2^15 — at widths 9, 33, 129 and
+    513 through the dispatch (the narrow kernel's delta mode, or the sort
+    with the anchor key + wide kernel for 513) and, up to ``M_NARROW``,
+    the narrow kernel directly."""
+    import torch
+    from automerge_tpu_torch.device import cuda_sequence, sequence
+    rng = np.random.default_rng(2468)
+    for K, m in ((1024, 9), (512, 33), (128, 129), (16, 513)):
+        planes = [torch.as_tensor(p).to(dev)
+                  for p in delta_forests(rng, K, m)]
+        valid = planes[4]
+        want = sequence._rga_delta_order_plain(*planes)
+        got = {'dispatch': sequence._rga_delta_order_batched(*planes)}
+        ran = cuda_sequence.last_variant
+        if ran != cuda_sequence.variant(m):
+            raise AssertionError(f'rga delta at m={m}: ran {ran}')
+        if m <= cuda_sequence.M_NARROW:
+            got['narrow'] = cuda_sequence.rga_delta_cuda(
+                *planes[:4], valid, rounds=sequence._ceil_log2(m) + 1)
+        torch.cuda.synchronize()
+        for how, out in got.items():
+            if out.dtype != want.dtype or \
+                    not torch.equal(out[valid], want[valid]):
+                raise AssertionError(f'rga delta {how} kernel != plain at '
+                                     f'{(K, m)}')
+        print(f'kernel: rga_order delta mode (K={K}, m={m}) bit-equal to '
+              f'the plain version on valid rows: {", ".join(got)} '
+              f'(dispatch ran {ran})', flush=True)
+
+
+def _es_plain(vis_fmt, planes, t_u8, e_pad):
+    from automerge_tpu_torch.device import cuda_view
+    if vis_fmt == 'packed':
+        return cuda_view.edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    if vis_fmt == 'wide':
+        return cuda_view.edit_stream_wide(*planes, t_u8, e_pad=e_pad)
+    return cuda_view.edit_stream(*planes, t_u8, e_pad=e_pad)
+
+
+def _check_wide_edit_stream(dev):
+    """Phase 3e: the edit stream's wide format (two word planes) against
+    its plain version: a long text's one row (m past 32,768: the block
+    variant) and rows at m <= 512 (the warp variant), each also forced
+    onto the other variant."""
+    import torch
+    from automerge_tpu_torch.device import cuda_view
+    rng = np.random.default_rng(97531)
+    for K, m, e_pad in ((1, 40960, 64), (2, 65536, 256), (64, 200, 24),
+                        (1024, 512, 64)):
+        pv, nv, pi, ni, tb, _ = random_planes(rng, K, m)
+        t_u8 = torch.as_tensor(tb).to(dev)
+        planes = tuple(torch.as_tensor(x).to(dev)
+                       for x in wide_planes(pv, nv, pi, ni))
+        want = _es_plain('wide', planes, t_u8, e_pad)
+        picked = cuda_view.variant(m)
+        for force in (None, 'warp', 'block'):
+            got = cuda_view.edit_stream_cuda('wide', planes, t_u8, e_pad,
+                                             force=force)
+            torch.cuda.synchronize()
+            if force is None and cuda_view.last_variant != picked:
+                raise AssertionError(f'wide edit stream at m={m} ran '
+                                     f'{cuda_view.last_variant}')
+            if _max_abs_err(got, want, 'wide'):
+                raise AssertionError(f'wide kernel ({cuda_view.last_variant})'
+                                     f' != plain at {(K, m, e_pad)}')
+        print(f'kernel: edit_stream wide format (K={K}, m={m}, '
+              f'e_pad={e_pad}), warp and block variants, bit-equal to the '
+              f'plain version (dispatch picks {picked})', flush=True)
+
+
+LONG_CHARS, LONG_TICKS, LONG_WARM, LONG_BATCH = 32760, 48, 8, 8
+
+
+def long_text_applies(n_chars=LONG_CHARS, ticks=LONG_TICKS,
+                      batch=LONG_BATCH):
+    """The JAX package's long-document lane (``bench.py:971``
+    ``bench_incremental_order``) at 32,760 chars — 8 below the packed
+    format's 32,767-node bound, so the first tick crosses it: one text
+    document typed in one change, then ``ticks`` changes of ``batch``
+    appended chars, every 5th also deleting the char typed ``batch``
+    elems earlier. Returns (the per-apply change lists, the text after
+    each apply)."""
+    obj = '00000000-0000-4000-8000-00000000a11c'
+    ops = [{'action': 'makeText', 'obj': obj},
+           {'action': 'link', 'obj': ROOT_ID, 'key': 'text', 'value': obj}]
+    prev = '_head'
+    chars = []
+    for e in range(1, n_chars + 1):
+        c = chr(97 + e % 26)
+        ops += [{'action': 'ins', 'obj': obj, 'key': prev, 'elem': e},
+                {'action': 'set', 'obj': obj, 'key': f'w:{e}', 'value': c}]
+        prev = f'w:{e}'
+        chars.append((e, c))
+    applies = [[{'actor': 'w', 'seq': 1, 'deps': {}, 'ops': ops}]]
+    texts = [''.join(c for _, c in chars)]
+    elem = n_chars
+    for t in range(ticks):
+        ops = []
+        if t % 5 == 4:
+            gone = elem - batch
+            ops.append({'action': 'del', 'obj': obj, 'key': f'w:{gone}'})
+            chars = [x for x in chars if x[0] != gone]
+        for _ in range(batch):
+            elem += 1
+            c = chr(65 + elem % 26)
+            ops += [{'action': 'ins', 'obj': obj, 'key': prev,
+                     'elem': elem},
+                    {'action': 'set', 'obj': obj, 'key': f'w:{elem}',
+                     'value': c}]
+            prev = f'w:{elem}'
+            chars.append((elem, c))
+        applies.append([{'actor': 'w', 'seq': t + 2, 'deps': {},
+                         'ops': ops}])
+        texts.append(''.join(c for _, c in chars))
+    return applies, texts
+
+
+# the tick path's spans, summed per long-text tick (dict encode, then
+# the fused apply's admit -> stage -> dispatch, then the patch read)
+_LONG_SPANS = ('admit.encode', 'device.admit', 'device.stage',
+               'device.dispatch', 'device.patch_read')
+
+_IDX_KEYS = ('device_idx_incremental_applies', 'device_idx_window_applies',
+             'device_idx_rebuild_applies', 'device_idx_invalidations',
+             'general_mirror_convert_packed_to_wide')
+
+
+def _long_text_path(card, inputs):
+    """Phase 4b: one long text on the card through ``GeneralDocSet``,
+    two arms — the shipped one (incremental index, suffix window) and
+    the A/B one (``_INDEX_MODE='rebuild'``, ``_WINDOW_MODE='off'``) —
+    each checked after every apply against the host-built string and a
+    ``device='cpu'`` run of the port (diffs and text). Prints the p50
+    and p90 tick time (apply -> device drained -> diff read) of each
+    arm over the ticks after the 8th. The kernel inputs of the card's
+    applies land in ``inputs`` (see :func:`_capturing`). Returns (p50 and
+    p90 per arm and the launch counts of both arms, by launch key; the
+    applies; the CPU run's diffs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.device import general as G
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    from automerge_tpu_torch.utils.metrics import metrics
+
+    t0 = time.perf_counter()
+    applies, texts = long_text_applies()
+    cpu = GeneralDocSet(1, device='cpu')
+    cpu_diffs = []
+    for k, ch in enumerate(applies):
+        cpu.apply_changes('t', ch)
+        cpu_diffs.append(cpu.last_patch.diffs(0))
+        if cpu.materialize('t')['text'] != texts[k]:
+            raise AssertionError(f'long text apply {k}: cpu text != host')
+    print(f'long text: {len(texts[0])} chars, then {LONG_TICKS} ticks of '
+          f'{LONG_BATCH} chars (a delete every 5th) to {len(texts[-1])} '
+          f'chars; the cpu run of the port matched the host string after '
+          f'every apply ({time.perf_counter() - t0:.1f} s)', flush=True)
+
+    counts = {}
+    saved = G._INDEX_MODE, G._WINDOW_MODE
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    try:
+        for arm, imode, wmode in (('incremental+window', None, None),
+                                  ('rebuild, window off', 'rebuild',
+                                   'off')):
+            G._INDEX_MODE, G._WINDOW_MODE = imode, wmode
+            ds = GeneralDocSet(1, device='cuda')
+            base = {k: metrics.counters.get(k, 0) for k in _IDX_KEYS}
+            launches0 = _launch_counts()
+            times, warm_bumps, spans = [], 0, []
+            for k, ch in enumerate(applies):
+                before = {k2: metrics.counters.get(k2, 0)
+                          for k2 in _IDX_KEYS}
+                last = k == len(applies) - 1
+                ev = []
+                metrics.subscribe(ev.append)
+                # the last tick runs under torch.profiler (the arm's
+                # device busy time and idle share) and is not timed
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) \
+                    if last else contextlib.nullcontext()
+                try:
+                    with prof, _capturing(inputs):
+                        t1 = time.perf_counter()
+                        ds.apply_changes('t', ch)
+                        torch.cuda.synchronize()
+                        diffs = ds.last_patch.diffs(0)
+                        dt = (time.perf_counter() - t1) * 1e3
+                finally:
+                    metrics.unsubscribe(ev.append)
+                if last:
+                    busy, rows = _device_rows(prof, f'the long text '
+                                              f'({arm})')
+                    last_tick = (dt, busy, rows[:3])
+                elif k > LONG_WARM:
+                    times.append(dt)
+                    spans.append({n: _span_sum(
+                        [(e['name'], e['dur_ms']) for e in ev
+                         if e.get('event') == 'span'], n)
+                        for n in _LONG_SPANS})
+                if diffs != cpu_diffs[k]:
+                    raise AssertionError(f'long text ({arm}) apply {k}: '
+                                         f'cuda diffs != cpu diffs')
+                if ds.materialize('t')['text'] != texts[k]:
+                    raise AssertionError(f'long text ({arm}) apply {k}: '
+                                         f'cuda text != host string')
+                d = {k2: metrics.counters.get(k2, 0) - before[k2]
+                     for k2 in _IDX_KEYS}
+                if imode is None and k >= LONG_WARM + 1:
+                    if d['device_idx_incremental_applies'] != 1 or \
+                            d['device_idx_window_applies'] != 1:
+                        raise AssertionError(f'long text tick {k}: not '
+                                             f'incremental and windowed: {d}')
+                    warm_bumps += 1
+            tot = {k2: metrics.counters.get(k2, 0) - base[k2]
+                   for k2 in _IDX_KEYS}
+            if tot['general_mirror_convert_packed_to_wide'] != 1:
+                raise AssertionError(f'long text ({arm}): packed -> wide '
+                                     f'converted {tot} times')
+            if ds.store.pool.mirror['fmt'] != 'wide':
+                raise AssertionError('the long text is not on the wide '
+                                     'mirror')
+            arm_launches = _added(_launch_counts(), launches0)
+            times.sort()
+            p50 = times[len(times) // 2]
+            p90 = times[int(0.9 * len(times))]
+            med = {n: float(np.median([sp[n] for sp in spans]))
+                   for n in _LONG_SPANS}
+            print(f'long text ({arm}, {card}): tick (apply -> drained -> '
+                  f'diff read) p50 {p50:.4f} ms, p90 {p90:.4f} ms over '
+                  f'{len(times)} ticks after the {LONG_WARM}th (the last '
+                  f'tick profiled apart); span medians (ms) '
+                  + ', '.join(f'{n} {v:.4f}' for n, v in med.items())
+                  + f'; counters {tot}; launches {arm_launches}; every '
+                  f'apply\'s diffs == cpu and text == host string',
+                  flush=True)
+            wall, busy, rows = last_tick
+            print(f'profile (the last long-text tick of the {arm} arm under '
+                  f'torch.profiler, {card}): wall {wall:.4f} ms, device '
+                  f'busy {busy:.4f} ms, idle share {1 - busy / wall:.4f}; '
+                  f'largest: ' + '; '.join(f'{key[:60]} {ms:.4f} ms x{n}'
+                                           for key, ms, n in rows),
+                  flush=True)
+            counts[arm] = {'p50': p50, 'p90': p90}
+            if imode is None and warm_bumps != LONG_TICKS - LONG_WARM:
+                raise AssertionError('long text: warm ticks missed')
+    finally:
+        G._INDEX_MODE, G._WINDOW_MODE = saved
+    counts['launches'] = _launch_counts()
+    if not any(k[:2] == ('edit_stream', 'wide') for k in counts['launches']):
+        raise AssertionError('the long text did not launch the wide edit '
+                             'stream')
+    if not counts['launches'].get(('rga_order', 'delta', 'narrow')):
+        raise AssertionError('the long text did not launch the RGA delta '
+                             'mode')
+    return counts, applies, cpu_diffs
+
+
+def _async_path(card, applies, cpu_diffs):
+    """Phase 4c: ``apply_general_block_async`` over two blocks of the
+    long-text phase on a card store (after the sync load), then
+    ``drain_general``: each future's patch equals the sync apply's (the
+    cpu run's diffs)."""
+    from automerge_tpu_torch.device import general as G
+    store = G.init_store(1, device='cuda')
+    G.apply_general_block(store, store.encode_changes([applies[0]])) \
+        .diffs(0)
+    # each block encoded on a store of its own, before the applier runs
+    blocks = [G.init_store(1, device='cpu').encode_changes([applies[k]])
+              for k in (1, 2)]
+    t0 = time.perf_counter()
+    futs = [G.apply_general_block_async(store, b) for b in blocks]
+    G.drain_general(store)
+    dt = (time.perf_counter() - t0) * 1e3
+    for k, f in zip((1, 2), futs):
+        if f.diffs(0) != cpu_diffs[k]:
+            raise AssertionError(f'async apply {k}: diffs != the sync '
+                                 f'apply\'s')
+    G.close_general(store)
+    print(f'async ({card}): two long-text blocks through '
+          f'apply_general_block_async + drain_general in {dt:.1f} ms; both '
+          f'patches == the sync apply\'s', flush=True)
+
+
 def _check_flatmap_kernel(dev):
     """Phase 3c: the flat-map kernel's variants (the dispatch's pick, and
     the warp and block variants forced) against the plain version on
@@ -472,13 +920,14 @@ def _check_flatmap_kernel(dev):
               f'(dispatch picks {picked})', flush=True)
 
 
-def _device_doc_set_path(card, n_docs, list_ops):
+def _device_doc_set_path(card, n_docs, list_ops, inputs):
     """Phase 5: the per-doc device backend behind ``DeviceDocSet(device=
     'cuda')`` at config-5 size, two batches — a map-only fleet (the
     flat-map kernel) and a list fleet (the fused step's RGA kernel) —
     each checked against ``DeviceDocSet(device='cpu')`` on a seeded
     768-document subset and the host-oracle ``DocSet`` on 64 of them.
-    Returns (launch counts, captured kernel inputs)."""
+    The kernel inputs land in ``inputs`` (see :func:`_capturing`).
+    Returns the launch counts by launch key."""
     import torch
     from automerge_tpu_torch.device import backend as DB
     from automerge_tpu_torch.device import cuda_merge, cuda_sequence
@@ -513,40 +962,23 @@ def _device_doc_set_path(card, n_docs, list_ops):
             return out
         return run
 
-    # the kernel inputs the path hands the kernels, for the timings (the
-    # RGA order's raw planes, as the backend hands them to
-    # _rga_order_batched)
-    captured = {}
-    real_rga = DB._rga_order_batched
-    real_fm = cuda_merge.resolve_cuda
-
-    def cap_rga(*a):
-        captured['rga'] = a
-        return real_rga(*a)
-
-    def cap_fm(*a, **kw):
-        captured['flatmap'] = (a, kw)
-        return real_fm(*a, **kw)
-
     dds = DeviceDocSet(device='cuda')
-    counts = {}
     for name, fn in originals.items():
         setattr(DB, name, timed(name, fn, name in dev_fns))
-    DB._rga_order_batched = cap_rga
-    cuda_merge.resolve_cuda = cap_fm
     try:
         _reset_counts(cuda_view, cuda_sequence, cuda_merge)
         for name, prefix, per_doc in batches:
-            before = (cuda_merge.launches, cuda_sequence.launches)
+            before = (_total(cuda_merge), _total(cuda_sequence))
             phase_s.clear()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            dds.apply_changes_batch({f'{prefix}{d}': per_doc[d]
-                                     for d in range(n_docs)})
-            torch.cuda.synchronize()
+            with _capturing(inputs):
+                dds.apply_changes_batch({f'{prefix}{d}': per_doc[d]
+                                         for d in range(n_docs)})
+                torch.cuda.synchronize()
             t_apply = (time.perf_counter() - t0) * 1e3
-            fm = cuda_merge.launches - before[0]
-            rga = cuda_sequence.launches - before[1]
+            fm = _total(cuda_merge) - before[0]
+            rga = _total(cuda_sequence) - before[1]
             if name == 'map' and fm < 1:
                 raise AssertionError('the map-only batch did not launch the '
                                      'flat-map kernel')
@@ -561,16 +993,10 @@ def _device_doc_set_path(card, n_docs, list_ops):
                   f'flat-map {fm} rga {rga}; peak device memory '
                   f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
                   flush=True)
-        counts = {'flatmap_resolve': cuda_merge.launches,
-                  'rga_order': cuda_sequence.launches,
-                  'edit_stream': cuda_view.launches,
-                  'rga_variant': cuda_sequence.last_variant,
-                  'flatmap_variant': cuda_merge.last_variant}
+        counts = _launch_counts()
     finally:
         for name, fn in originals.items():
             setattr(DB, name, fn)
-        DB._rga_order_batched = real_rga
-        cuda_merge.resolve_cuda = real_fm
 
     # the same batches on the CPU (seeded subset, a doc set of its own)
     # and on the host oracle (64 of those documents)
@@ -599,7 +1025,188 @@ def _device_doc_set_path(card, n_docs, list_ops):
           f'on a seeded subset of {len(sub)} docs per batch and == the '
           f'host oracle on 64 ({t_cpu:.1f} s on the cpu); all {n_docs} '
           f'lists have {list_ops} items', flush=True)
-    return counts, captured
+    return counts
+
+
+# the source of each CUDA kernel and the TPU kernel it replaces
+_KERNEL_FILES = {
+    'edit_stream': ('automerge_tpu_torch/csrc/edit_stream.cu',
+                    'automerge_tpu/device/pallas_view.py:233'),
+    'rga_order': ('automerge_tpu_torch/csrc/rga_order.cu',
+                  'automerge_tpu/device/pallas_sequence.py:165'),
+    'flatmap_resolve': ('automerge_tpu_torch/csrc/flatmap_resolve.cu',
+                        'automerge_tpu/device/pallas_merge.py:136'),
+}
+
+# bytes per node of the edit stream's vis planes, by format
+_ES_NODE_BYTES = {'packed': 4, 'wide': 8, 'cols': 10}
+
+
+def _delta_err(got, want, valid, where):
+    """Largest |got - want| of the delta orderer's tree positions on the
+    valid rows; raises when the dtypes or shapes differ."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f'{where}: {got.dtype}{tuple(got.shape)} != '
+                             f'{want.dtype}{tuple(want.shape)}')
+    if not bool(valid.any()):
+        return 0
+    return int((got[valid].to(torch.int64) - want[valid].to(torch.int64))
+               .abs().max())
+
+
+def _kernel_calls(key, kind, args):
+    """The calls of one captured input of launch ``key`` (kernel, mode,
+    variant): ``dispatch`` (the call as the path makes it), ``kernel``
+    (the kernel alone on inputs made ready once), ``plain`` (its plain
+    version), ``err(got, want)``, ``extra`` (other variants of the
+    kernel to hold and time beside it), and the ``bytes`` one launch
+    must move (each input read once, each output written once) at
+    ``shape``."""
+    import torch
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view, merge, sequence
+    i32 = torch.int32
+    c = {'extra': {}}
+    if kind == 'es':
+        vis_fmt, planes, tb, e_pad = args
+        lead = planes if vis_fmt == 'packed' else planes[0]
+        K, m = lead.shape
+        ready = planes.contiguous() if vis_fmt == 'packed' else \
+            tuple(p.contiguous() for p in planes)
+        t_u8 = torch.as_tensor(tb).to(lead.device)
+        c['dispatch'] = lambda: cuda_view.dispatch_edit_stream(
+            vis_fmt, planes, tb, e_pad)
+        c['kernel'] = lambda: cuda_view.edit_stream_cuda(
+            vis_fmt, ready, t_u8, e_pad)
+        c['plain'] = lambda: _es_plain(vis_fmt, ready, t_u8, e_pad)
+        c['err'] = lambda got, want: _max_abs_err(got, want, str(key))
+        c['bytes'] = K * m * _ES_NODE_BYTES[vis_fmt] + K * tb.shape[1] + \
+            5 * K * e_pad * 4 + 12 * K
+        c['shape'] = f'K={K} m={m} e_pad={e_pad}'
+    elif kind in ('rga', 'delta'):
+        K, m = args[0].shape
+        rounds = sequence._ceil_log2(m) + 1
+        if kind == 'rga':
+            parent, elem, actor, visible, valid = args
+            anchor = None
+            c['dispatch'] = lambda: sequence._rga_order_batched(*args)
+            c['plain'] = lambda: sequence._rga_order_plain(*args)
+            mask = valid.to(torch.bool)
+            c['err'] = lambda got, want: _bits_err(got, want, str(key),
+                                                   mask=mask)
+        else:
+            parent, anchor, elem, actor, valid = args
+            visible = valid
+            c['dispatch'] = lambda: sequence._rga_delta_order_batched(*args)
+            c['plain'] = lambda: sequence._rga_delta_order_plain(*args)
+            mask = valid.to(torch.bool)
+            c['err'] = lambda got, want: _delta_err(
+                got if torch.is_tensor(got) else got['tree_pos'], want,
+                mask, str(key))
+        flags = (visible.to(torch.bool).contiguous(),
+                 valid.to(torch.bool).contiguous())
+        if key[1:] == ('order', 'narrow'):
+            raw = [t.to(i32).contiguous() for t in (parent, elem, actor)]
+            c['kernel'] = lambda: cuda_sequence.rga_order_cuda(
+                *raw, *flags, rounds=rounds)
+        elif key[1] == 'delta':
+            raw = [t.to(i32).contiguous()
+                   for t in (parent, anchor, elem, actor)]
+            c['kernel'] = lambda: cuda_sequence.rga_delta_cuda(
+                *raw, flags[1], rounds=rounds)
+        else:
+            srt = [t.to(i32).contiguous() for t in sequence._child_sort(
+                parent, elem, actor, valid, anchor)]
+            c['kernel'] = lambda: cuda_sequence.order_from_sorted_cuda(
+                *srt, *flags, rounds=rounds)
+        # the delta mode reads four int32 planes and valid, and writes
+        # tree_pos; the rebuild modes read three int32 planes (or the
+        # sorted order, parent_adj and parent) and two bool planes, and
+        # write three int32 planes and the lengths
+        c['bytes'] = K * m * (4 * 4 + 1 + 4) if key[1] == 'delta' else \
+            K * m * (4 * 3 + 2 + 12) + K * 4
+        c['shape'] = f'K={K} m={m}'
+    else:
+        a, kw = args
+        D, N = a[0].shape
+        A = a[3].shape[2]
+        S = kw['num_segments']
+        c['dispatch'] = lambda: cuda_merge.dispatch_resolve(
+            *a, num_segments=S)
+        c['kernel'] = lambda: cuda_merge.resolve_cuda(*a, **kw)
+        c['plain'] = lambda: merge.resolve_assignments_batch(
+            *a, num_segments=S)
+        c['err'] = lambda got, want: _bits_err(got, want, str(key))
+        if key[2] != 'block':
+            c['extra']['block'] = lambda: cuda_merge.resolve_cuda(
+                *a, num_segments=S, force='block')
+        # seg_id, actor, seq int32 + clock int32 [D, N, A] + is_del,
+        # valid bool in; surviving bool + winner, seg_max_actor int32 out
+        c['bytes'] = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + \
+            2 * D * S * 4
+        c['shape'] = f'D={D} N={N} A={A} S={S}'
+    c['size'] = K * m if kind != 'fm' else D * N * A
+    return c
+
+
+def _kernel_row(key, n, entries, card):
+    """Phase 7 for launch ``key`` (kernel, mode, variant), which the main
+    paths launched ``n`` times: every input of it they handed over,
+    through the dispatch (which must launch exactly ``key``) against the
+    plain version, bit for bit; then, at the largest of those inputs
+    (the later of equals), the kernel's device time (a CUDA graph of 50
+    launches, median, min and max of 5 replays), the dispatch called
+    eagerly, the plain version and the byte bound. Returns the JSON
+    row."""
+    import torch
+    if not entries:
+        raise AssertionError(f'{key} launched {n} times on the main paths '
+                             f'but none of its inputs was captured')
+    err, big = 0, None
+    for kind, args in entries:
+        c = _kernel_calls(key, kind, args)
+        before = _launch_counts()
+        got = c['dispatch']()
+        ran = _added(_launch_counts(), before)
+        want = c['plain']()
+        outs = {'dispatch': got, **{v: f() for v, f in c['extra'].items()}}
+        torch.cuda.synchronize()
+        if ran != {key: 1}:
+            raise AssertionError(f'a main-path input of {key} launched '
+                                 f'{ran}')
+        for how, out in outs.items():
+            e = c['err'](out, want)
+            if e:
+                raise AssertionError(f'{key} ({how}) != plain at a '
+                                     f'main-path input, {c["shape"]} '
+                                     f'(max |diff| {e})')
+            err = max(err, e)
+        if big is None or c['size'] >= big['size']:
+            big = c
+    t_k = _time_ms(big['kernel'], graph=True)
+    t_eager = _time_ms(big['dispatch'])
+    t_plain = _time_ms(big['plain'], iters=20)
+    t_extra = {v: _time_ms(f, graph=True) for v, f in big['extra'].items()}
+    bound = big['bytes'] / _HBM_BYTES_PER_S * 1e3
+    name = ':'.join(key)
+    print(f'{name} ({card}): {n} launches on the main paths; all '
+          f'{len(entries)} of their inputs bit-equal to the plain version '
+          f'through the dispatch' + ''.join(f' and the {v} variant'
+                                            for v in t_extra)
+          + f'; at {big["shape"]}: {_fmt_t(t_k)} per launch on the device '
+          f'(a CUDA graph of 50 launches, median of 5 replays)'
+          + ''.join(f', the {v} variant {_fmt_t(t)}'
+                    for v, t in t_extra.items())
+          + f'; the dispatch called eagerly {_fmt_t(t_eager)}; plain '
+          f'PyTorch {_fmt_t(t_plain)}; bound {bound:.5f} ms '
+          f'({big["bytes"]} bytes at 3.35 TB/s)', flush=True)
+    source, replaces = _KERNEL_FILES[key[0]]
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': n, 'max_abs_err': err,
+            'ms': t_k[0], 'plain_ms': t_plain[0], 'bound_ms': bound,
+            'bound_by': 'bytes', 'library_ms': None, 'mode': key[1],
+            'variant': key[2], 'shape': big['shape']}
 
 
 def main():
@@ -610,8 +1217,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from automerge_tpu_torch import native as amnative
     from automerge_tpu_torch.device import (cuda_build, cuda_merge,
-                                            cuda_sequence, cuda_view, merge,
-                                            sequence)
+                                            cuda_sequence, cuda_view)
     from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
     from automerge_tpu_torch.utils.metrics import metrics
 
@@ -674,6 +1280,8 @@ def main():
               f'version (dispatch picks {picked}; drop path hit: {drops})',
               flush=True)
     _check_rga_kernel(dev)
+    _check_delta_kernel(dev)
+    _check_wide_edit_stream(dev)
     _check_flatmap_kernel(dev)
 
     # ---- 4. main path at config-5 size ----
@@ -686,21 +1294,9 @@ def main():
     print(f'workload: {n_docs} docs, tick 1 {n_ops[0]} ops, tick 2 '
           f'{n_ops[1]} ops (generated in {t_gen:.1f} s)', flush=True)
 
-    # the edit-stream and RGA inputs the main path hands the kernels,
-    # kept for the kernel-vs-plain check and the timing at those shapes
-    # (the RGA order's raw planes, as the engine hands them to
-    # sequence._rga_order_batched)
-    es_inputs, rga_inputs = [], []
-    real_dispatch = cuda_view.dispatch_edit_stream
-    real_rga = sequence._rga_order_batched
-
-    def capture(vis_fmt, planes, touched_u8, e_pad):
-        es_inputs.append((vis_fmt, planes, np.array(touched_u8), e_pad))
-        return real_dispatch(vis_fmt, planes, touched_u8, e_pad)
-
-    def capture_rga(*a):
-        rga_inputs.append(a)
-        return real_rga(*a)
+    # every kernel input the main paths hand the kernels, by the launch
+    # it takes, for the kernel-vs-plain checks and the timings of phase 7
+    inputs = {}
 
     # seeded documents whose diffs and views are checked against the CPU
     sub = np.sort(np.random.default_rng(7).choice(n_docs, 768,
@@ -734,20 +1330,27 @@ def main():
     metrics.reset()
     gds = GeneralDocSet(n_docs, device='cuda')
     diffs_gpu = []
-    cuda_view.dispatch_edit_stream = capture
-    sequence._rga_order_batched = capture_rga
     _reset_counts(cuda_view, cuda_sequence, cuda_merge)
-    try:
+    with _capturing(inputs):
         for k, batch in enumerate(ticks):
-            before = (cuda_view.launches, cuda_sequence.launches)
+            before = _launch_counts()
+            incr0 = metrics.counters.get('device_idx_incremental_applies', 0)
             diffs, t_apply, t_read, spans = run_tick(
                 gds, batch, range(n_docs), sub, torch.cuda.synchronize)
-            if cuda_view.launches <= before[0]:
+            added = _added(_launch_counts(), before)
+            if not any(key[0] == 'edit_stream' for key in added):
                 raise AssertionError(f'tick {k + 1} did not launch the '
                                      f'edit-stream kernel')
-            if cuda_sequence.launches <= before[1]:
+            if not any(key[0] == 'rga_order' for key in added):
                 raise AssertionError(f'tick {k + 1} did not launch the RGA '
                                      f'kernel')
+            if k == 1 and (
+                    not added.get(('rga_order', 'delta', 'narrow'))
+                    or metrics.counters.get(
+                        'device_idx_incremental_applies', 0) != incr0 + 1):
+                raise AssertionError('tick 2 did not take the incremental '
+                                     'index update through the RGA '
+                                     'kernel\'s delta mode')
             diffs_gpu.append(diffs)
             enc = _span_sum(spans, 'admit.encode')
             fused = _span_sum(spans, 'device.fused_apply')
@@ -763,28 +1366,19 @@ def main():
         t0 = time.perf_counter()
         views_gpu = gds.materialize_all()
         t_mat = (time.perf_counter() - t0) * 1e3
-    finally:
-        cuda_view.dispatch_edit_stream = real_dispatch
-        sequence._rga_order_batched = real_rga
-    launches_main = cuda_view.launches
-    rga_main = cuda_sequence.launches
-    ran = {'edit_stream': cuda_view.last_variant,
-           'rga_order': cuda_sequence.last_variant}
+    main_counts = _launch_counts()
     native_batches = metrics.counters.get('general_stage_native_batches', 0)
     variants = {k: v for k, v in metrics.counters.items()
                 if k.startswith('general_variant_')}
-    if launches_main < len(ticks) or rga_main < len(ticks):
-        raise AssertionError(f'edit-stream kernel launched {launches_main} '
-                             f'and RGA kernel {rga_main} times on the '
-                             f'{len(ticks)}-tick main path')
-    if cuda_merge.launches:
+    if _total(cuda_merge):
         raise AssertionError('the general tick launched the flat-map kernel')
     mir = gds.store.pool.mirror
     if mir['fmt'] != 'packed' or mir['w2'].device.type != 'cuda':
         raise AssertionError(f'mirror not packed on the card: {mir["fmt"]}')
+    idx = {k: metrics.counters.get(k, 0) for k in _IDX_KEYS}
     print(f'main path (cuda, {card}): materialize_all {t_mat:.1f} ms, '
-          f'edit-stream launches {launches_main}, rga launches {rga_main}, '
-          f'native staging batches {native_batches}, variants {variants}, '
+          f'launches {main_counts}, native staging batches '
+          f'{native_batches}, variants {variants}, index {idx}, '
           f'peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB',
           flush=True)
@@ -813,175 +1407,23 @@ def main():
           f'cpu); all {n_docs} cuda views have {list_ops + 1} items and '
           f'w2\'s meta as the conflict winner', flush=True)
 
+    # ---- 4b. a long text across the packed bound, and the async apply ----
+    long_counts, long_applies, long_diffs = _long_text_path(card, inputs)
+    _async_path(card, long_applies, long_diffs)
+
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
-    dds_counts, dds_inputs = _device_doc_set_path(card, n_docs, list_ops)
+    dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
     # ---- 6. device busy vs wall ----
     _profile_tick(gds, ids, n_docs, list_ops, card)
 
-    # ---- 7. the kernels at the main path's shapes ----
-    kernels = []
-    # edit stream: each tick's own inputs; the timing at the last, tick 2
-    max_abs = 0
-    for vis_fmt, planes, tb, e_pad in es_inputs:
-        t_u8 = torch.as_tensor(tb).to(dev)
-        got = cuda_view.edit_stream_cuda(vis_fmt, planes, t_u8, e_pad)
-        want = cuda_view.edit_stream_packed(planes, t_u8, e_pad=e_pad)
-        torch.cuda.synchronize()
-        max_abs = max(max_abs, _max_abs_err(got, want, 'main path'))
-        if cuda_view.last_variant != cuda_view.variant(planes.shape[1]):
-            raise AssertionError(f'edit stream ran {cuda_view.last_variant}'
-                                 f' at a main-path shape')
-    if max_abs:
-        raise AssertionError(f'kernel != plain at a main-path shape '
-                             f'(max |diff| {max_abs})')
-    if ran['edit_stream'] != cuda_view.variant(planes.shape[1]):
-        raise AssertionError(f'the main path ran the {ran["edit_stream"]} '
-                             f'edit-stream variant')
-    K2, m2 = planes.shape
-    es_t = _time_ms(lambda: cuda_view.edit_stream_cuda(
-        vis_fmt, planes, t_u8, e_pad), graph=True)
-    es_eager = _time_ms(lambda: cuda_view.edit_stream_cuda(
-        vis_fmt, planes, t_u8, e_pad))
-    plain_t = _time_ms(lambda: cuda_view.edit_stream_packed(
-        planes, t_u8, e_pad=e_pad), iters=20)
-    bytes_moved = K2 * m2 * 4 + K2 * tb.shape[1] + 5 * K2 * e_pad * 4 + \
-        12 * K2
-    bound_ms = bytes_moved / _HBM_BYTES_PER_S * 1e3
-    print(f'edit-stream kernel ({card}): tick-2 shape K={K2} m={m2} '
-          f'e_pad={e_pad}, {ran["edit_stream"]} variant: {_fmt_t(es_t)} per '
-          f'launch on the device (a CUDA graph of 50 launches, median of 5 '
-          f'replays), {_fmt_t(es_eager)} called eagerly; plain PyTorch '
-          f'{_fmt_t(plain_t)}; bound {bound_ms:.5f} ms ({bytes_moved} bytes '
-          f'at 3.35 TB/s); max |kernel - plain| {max_abs}', flush=True)
-    kernels.append({
-        'name': 'edit_stream', 'route': 'cuda',
-        'source': 'automerge_tpu_torch/csrc/edit_stream.cu',
-        'replaces': 'automerge_tpu/device/pallas_view.py:233',
-        'launches': launches_main + dds_counts['edit_stream'],
-        'max_abs_err': max_abs, 'ms': es_t[0], 'plain_ms': plain_t[0],
-        'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': None,
-        'variant': ran['edit_stream']})
-
-    # RGA order: every main-path input (both ticks and the device doc
-    # set's list batch, raw planes) through the dispatch against the
-    # plain version; timed at the general tick 2 and the list batch —
-    # the kernel alone, the whole step as the path pays it, and the
-    # PyTorch sort + wide kernel step beside it
-    rga_timed = (('general tick 2', rga_inputs[-1]),
-                 ('device doc set list batch', dds_inputs['rga']))
-    rga_inputs.append(dds_inputs['rga'])
-    rga_err = 0
-    for a in rga_inputs:
-        got = sequence._rga_order_batched(*a)
-        want = sequence._rga_order_plain(*a)
-        torch.cuda.synchronize()
-        rga_err = max(rga_err, _bits_err(got, want, 'rga main path',
-                                         mask=a[4].to(torch.bool)))
-        if cuda_sequence.last_variant != cuda_sequence.variant(a[0].shape[1]):
-            raise AssertionError(f'rga ran {cuda_sequence.last_variant} at '
-                                 f'a main-path shape')
-    if rga_err:
-        raise AssertionError(f'rga kernel != plain at a main-path shape '
-                             f'(max |diff| {rga_err})')
-    for path in ('rga_order', 'rga_variant'):
-        v = ran['rga_order'] if path == 'rga_order' else \
-            dds_counts['rga_variant']
-        if v != cuda_sequence.variant(rga_inputs[0][0].shape[1]):
-            raise AssertionError(f'a main path ran the {v} RGA variant')
-    rga_times = []
-    for label, a in rga_timed:
-        Kr, mr = a[0].shape
-        rounds = sequence._ceil_log2(mr) + 1
-        raw = [t.to(torch.int32).contiguous() for t in a[:3]] + \
-            [t.to(torch.bool).contiguous() for t in a[3:]]
-        srt = [t.to(torch.int32).contiguous()
-               for t in sequence._child_sort(a[0], a[1], a[2], a[4])]
-        r_kernel = _time_ms(lambda: cuda_sequence.rga_order_cuda(
-            *raw, rounds=rounds), graph=True)
-        r_step = _time_ms(lambda: sequence._rga_order_batched(*a))
-        r_wide = _time_ms(lambda: cuda_sequence.order_from_sorted_cuda(
-            *srt, *raw[3:], rounds=rounds), graph=True)
-
-        def sort_wide():
-            o, p, q = sequence._child_sort(a[0], a[1], a[2], a[4])
-            return cuda_sequence.order_from_sorted_cuda(
-                o.to(torch.int32), p.to(torch.int32), q.to(torch.int32),
-                *raw[3:], rounds=rounds)
-        r_sort_wide = _time_ms(sort_wide)
-        r_plain = _time_ms(lambda: sequence._rga_order_plain(*a), iters=20)
-        # inputs: parent, elem, actor int32 + visible, valid bool;
-        # outputs: three int32 planes + int32 length
-        r_bytes = Kr * mr * (4 * 3 + 2) + Kr * mr * 12 + Kr * 4
-        r_bound = r_bytes / _HBM_BYTES_PER_S * 1e3
-        rga_times.append((r_kernel, r_plain, r_bound))
-        print(f'rga_order kernel ({card}): {label} shape K={Kr} m={mr}, '
-              f'narrow variant: {_fmt_t(r_kernel)} per launch on the device '
-              f'(a CUDA graph of 50 launches, median of 5 replays); the '
-              f'whole step (_rga_order_batched, called eagerly) '
-              f'{_fmt_t(r_step)}; beside it the wide kernel on the sorted '
-              f'planes {_fmt_t(r_wide)} (device) and the PyTorch sort + wide '
-              f'kernel step {_fmt_t(r_sort_wide)} (eager); plain PyTorch '
-              f'{_fmt_t(r_plain)}; bound {r_bound:.5f} ms ({r_bytes} bytes '
-              f'at 3.35 TB/s); max |kernel - plain| {rga_err}', flush=True)
-    r_kernel, r_plain, r_bound = rga_times[-1]
-    kernels.append({
-        'name': 'rga_order', 'route': 'cuda',
-        'source': 'automerge_tpu_torch/csrc/rga_order.cu',
-        'replaces': 'automerge_tpu/device/pallas_sequence.py:165',
-        'launches': rga_main + dds_counts['rga_order'],
-        'max_abs_err': rga_err, 'ms': r_kernel[0], 'plain_ms': r_plain[0],
-        'bound_ms': r_bound, 'bound_by': 'bytes', 'library_ms': None,
-        'variant': ran['rga_order']})
-
-    # flat-map resolve: the map batch's own inputs, through the variant
-    # the path ran and the block variant beside it
-    a, kw = dds_inputs['flatmap']
-    D, N = a[0].shape
-    A = a[3].shape[2]
-    S = kw['num_segments']
-    fm_ran = dds_counts['flatmap_variant']
-    if fm_ran != cuda_merge.variant(N, S, A):
-        raise AssertionError(f'the map batch ran the {fm_ran} flat-map '
-                             f'variant')
-    want = merge.resolve_assignments_batch(*a, **kw)
-    fm_err = 0
-    for force in (None, 'block'):
-        got = cuda_merge.resolve_cuda(*a, **kw, force=force)
-        torch.cuda.synchronize()
-        fm_err = max(fm_err, _bits_err(got, want, 'flatmap main path'))
-    if fm_err:
-        raise AssertionError(f'flatmap kernel != plain at the main-path '
-                             f'shape (max |diff| {fm_err})')
-    f_t = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw), graph=True)
-    f_block = _time_ms(lambda: cuda_merge.resolve_cuda(*a, **kw,
-                                                       force='block'),
-                       graph=True)
-    f_eager = _time_ms(lambda: cuda_merge.dispatch_resolve(*a, **kw))
-    # the plain version is the torch segment resolve (kernel='xla')
-    f_plain = _time_ms(lambda: merge.resolve_assignments_batch(*a, **kw),
-                       iters=20)
-    # inputs: seg_id, actor, seq int32 + clock int32 [D, N, A] + is_del,
-    # valid bool; outputs: surviving bool + winner, seg_max_actor int32
-    f_bytes = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + 2 * D * S * 4
-    f_bound = f_bytes / _HBM_BYTES_PER_S * 1e3
-    print(f'flatmap_resolve kernel ({card}): device doc set map batch '
-          f'shape D={D} N={N} A={A} S={S}, {fm_ran} variant: {_fmt_t(f_t)} '
-          f'per launch on the device (a CUDA graph of 50 launches), the '
-          f'block variant {_fmt_t(f_block)}; dispatch_resolve called '
-          f'eagerly {_fmt_t(f_eager)}; plain PyTorch (the torch segment '
-          f'resolve, kernel=\'xla\') {_fmt_t(f_plain)}, bound '
-          f'{f_bound:.5f} ms ({f_bytes} bytes at 3.35 TB/s), max |kernel - '
-          f'plain| {fm_err}', flush=True)
-    kernels.append({
-        'name': 'flatmap_resolve', 'route': 'cuda',
-        'source': 'automerge_tpu_torch/csrc/flatmap_resolve.cu',
-        'replaces': 'automerge_tpu/device/pallas_merge.py:136',
-        'launches': dds_counts['flatmap_resolve'],
-        'max_abs_err': fm_err, 'ms': f_t[0], 'plain_ms': f_plain[0],
-        'bound_ms': f_bound, 'bound_by': 'bytes', 'library_ms': None,
-        'variant': fm_ran})
-
+    # ---- 7. the kernels at the main paths' inputs ----
+    launched = {}
+    for counts in (main_counts, long_counts['launches'], dds_counts):
+        for key, n in counts.items():
+            launched[key] = launched.get(key, 0) + n
+    kernels = [_kernel_row(key, n, inputs.get(key), card)
+               for key, n in sorted(launched.items())]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -989,14 +1431,32 @@ def main():
     return 0
 
 
+def _device_rows(prof, what):
+    """(busy ms, rows sorted by device time) of a ``torch.profiler``
+    capture: device-side events only (kernels and copies) — the aten op
+    rows carry the same device time again as their own "self" time.
+    Raises when the capture recorded no device event."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f'torch.profiler recorded no device events '
+                             f'for {what}; the idle share was not measured')
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
 def _profile_tick(gds, ids, n_docs, list_ops, card):
     """One more tick (a fourth actor per document) under
     ``torch.profiler``: device busy time against the tick's wall time,
     and the kernels that take it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from automerge_tpu_torch.utils.metrics import metrics
     tick3 = gen_tick2(n_docs, list_ops, seed=1, actor='w3')
+    before = {k: metrics.counters.get(k, 0) for k in _IDX_KEYS}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1004,18 +1464,16 @@ def _profile_tick(gds, ids, n_docs, list_ops, card):
         gds.last_patch.diffs(0)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels and copies): the aten op rows
-    # carry the same device time again as their own "self" time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    if not rows:
-        raise AssertionError('torch.profiler recorded no device events '
-                             'for tick 3; the idle share was not measured')
-    print(f'profile (tick 3 under torch.profiler, {card}): wall '
+    # tick 3 re-inserts elems 49 and 50, not above the pre-tick maximum:
+    # the eligibility gate must send it to the whole-object rebuild
+    d = {k: metrics.counters.get(k, 0) - before[k] for k in _IDX_KEYS}
+    if d['device_idx_rebuild_applies'] != 1 or \
+            d['device_idx_invalidations'] != 1 or \
+            d['device_idx_incremental_applies']:
+        raise AssertionError(f'tick 3 did not fall back to the rebuild: {d}')
+    busy, rows = _device_rows(prof, 'tick 3')
+    print(f'profile (tick 3 under torch.profiler, {card}): a rebuild '
+          f'fallback ({d["device_idx_invalidations"]} invalidation); wall '
           f'{wall:.1f} ms, device busy {busy:.2f} ms, idle share '
           f'{1 - busy / wall:.4f}', flush=True)
     for key, ms, n in rows[:8]:

@@ -1,5 +1,6 @@
 """The edit stream: the PyTorch port's plain versions against the JAX
-package's ``edit_stream`` / ``edit_stream_packed`` (and once against the
+package's ``edit_stream`` / ``edit_stream_packed`` / ``edit_stream_wide``
+(and once against the
 Pallas kernel in interpret mode) on numpy-seeded planes, including
 ``e_pad`` below the class counts (the drop path), ``e_pad`` = 1 and
 ``e_pad`` = m. ``dispatch_edit_stream`` runs the plain version for CPU
@@ -16,7 +17,7 @@ import torch
 from automerge_tpu.device import pallas_view as jv
 from automerge_tpu_torch.device import cuda_view as tv
 
-from chip_smoke import random_planes
+from chip_smoke import random_planes, wide_planes
 
 torch.set_num_threads(1)
 
@@ -55,6 +56,15 @@ def test_plain_cols_matches_jax(K, m, e_pad):
           tv.edit_stream(*_t(pv, nv, pi, ni, tb), e_pad=e_pad))
 
 
+@pytest.mark.parametrize('K,m,e_pad', CASES)
+def test_plain_wide_matches_jax(K, m, e_pad):
+    rng = np.random.default_rng(K * 1000 + m + e_pad + 11)
+    pv, nv, pi, ni, tb, _ = random_planes(rng, K, m)
+    vp, vn = wide_planes(pv, nv, pi, ni)
+    _same(jv.edit_stream_wide(vp, vn, tb, e_pad=e_pad),
+          tv.edit_stream_wide(*_t(vp, vn, tb), e_pad=e_pad))
+
+
 def test_drop_path_counts_are_not_clamped():
     rng = np.random.default_rng(2)
     pv, nv, pi, ni, tb, packed = random_planes(rng, 4, 64)
@@ -73,18 +83,35 @@ def test_plain_matches_pallas_interpret():
           tv.edit_stream(*_t(pv, nv, pi, ni, tb), e_pad=8))
 
 
-@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+def _host_planes(fmt, pv, nv, pi, ni, packed):
+    return {'packed': packed, 'cols': (pv, nv, pi, ni),
+            'wide': wide_planes(pv, nv, pi, ni)}[fmt]
+
+
+def _torch_planes(fmt, host, dev='cpu'):
+    if fmt == 'packed':
+        return torch.as_tensor(host).to(dev)
+    return tuple(x.to(dev) for x in _t(*host))
+
+
+def _plain(fmt, planes, t_u8, e_pad):
+    if fmt == 'packed':
+        return tv.edit_stream_packed(planes, t_u8, e_pad=e_pad)
+    if fmt == 'wide':
+        return tv.edit_stream_wide(*planes, t_u8, e_pad=e_pad)
+    return tv.edit_stream(*planes, t_u8, e_pad=e_pad)
+
+
+@pytest.mark.parametrize('fmt', ['packed', 'cols', 'wide'])
 def test_dispatch_on_cpu_uses_the_plain_version(fmt):
     rng = np.random.default_rng(5)
     pv, nv, pi, ni, tb, packed = random_planes(rng, 6, 48)
-    planes = torch.as_tensor(packed) if fmt == 'packed' else \
-        tuple(_t(pv, nv, pi, ni))
-    before = tv.launches
-    got = tv.dispatch_edit_stream(fmt, planes, tb, 16)
-    assert tv.launches == before
+    host = _host_planes(fmt, pv, nv, pi, ni, packed)
+    before = sum(tv.launches.values())
+    got = tv.dispatch_edit_stream(fmt, _torch_planes(fmt, host), tb, 16)
+    assert sum(tv.launches.values()) == before
     assert all(t.device.type == 'cpu' for t in got)
-    _same(jv.dispatch_edit_stream(fmt, packed if fmt == 'packed'
-                                  else (pv, nv, pi, ni), tb, 16), got)
+    _same(jv.dispatch_edit_stream(fmt, host, tb, 16), got)
 
 
 def test_warp_bound():
@@ -114,21 +141,18 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('K,m,e_pad', CASES + [(10240, 64, 64),
                                                (64, 4096, 512)])
-@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+@pytest.mark.parametrize('fmt', ['packed', 'cols', 'wide'])
 def test_cuda_kernel_matches_plain(cuda_device, fmt, K, m, e_pad):
     rng = np.random.default_rng(K + m + e_pad)
     pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
     t_u8 = torch.as_tensor(tb).to(cuda_device)
-    if fmt == 'packed':
-        planes = torch.as_tensor(packed).to(cuda_device)
-        want = tv.edit_stream_packed(planes, t_u8, e_pad=e_pad)
-    else:
-        planes = tuple(x.to(cuda_device) for x in _t(pv, nv, pi, ni))
-        want = tv.edit_stream(*planes, t_u8, e_pad=e_pad)
-    before = tv.launches
+    planes = _torch_planes(fmt, _host_planes(fmt, pv, nv, pi, ni, packed),
+                           cuda_device)
+    want = _plain(fmt, planes, t_u8, e_pad)
+    before = sum(tv.launches.values())
     got = tv.dispatch_edit_stream(fmt, planes, tb, e_pad)
     torch.cuda.synchronize()
-    assert tv.launches == before + 1
+    assert sum(tv.launches.values()) == before + 1
     assert tv.last_variant == tv.variant(m)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -138,13 +162,9 @@ def _card_case(dev, fmt, K, m, e_pad, seed):
     pv, nv, pi, ni, tb, packed = random_planes(np.random.default_rng(seed),
                                                K, m)
     t_u8 = torch.as_tensor(tb).to(dev)
-    if fmt == 'packed':
-        planes = torch.as_tensor(packed).to(dev)
-        want = tv.edit_stream_packed(planes, t_u8, e_pad=e_pad)
-    else:
-        planes = tuple(x.to(dev) for x in _t(pv, nv, pi, ni))
-        want = tv.edit_stream(*planes, t_u8, e_pad=e_pad)
-    return planes, t_u8, want
+    planes = _torch_planes(fmt, _host_planes(fmt, pv, nv, pi, ni, packed),
+                           dev)
+    return planes, t_u8, _plain(fmt, planes, t_u8, e_pad)
 
 
 def _widths():
@@ -155,7 +175,7 @@ def _widths():
 @pytest.mark.cuda
 @pytest.mark.parametrize('e_pad', ['drop', 'one', 'm'])
 @pytest.mark.parametrize('i', range(9))
-@pytest.mark.parametrize('fmt', ['packed', 'cols'])
+@pytest.mark.parametrize('fmt', ['packed', 'cols', 'wide'])
 def test_cuda_variants_match_plain(cuda_device, fmt, i, e_pad):
     m = _widths()[i]
     K = max(2, min(256, 300_000 // m))
@@ -163,14 +183,15 @@ def test_cuda_variants_match_plain(cuda_device, fmt, i, e_pad):
     planes, t_u8, want = _card_case(cuda_device, fmt, K, m, e, K + m + e)
     if e_pad == 'drop':
         assert bool((want[5] > e).any())      # the drop path is hit
-    before = tv.launches
+    before = sum(tv.launches.values())
     got = tv.edit_stream_cuda(fmt, planes, t_u8, e)
     assert tv.last_variant == tv.variant(m) == \
         ('warp' if m <= tv.M_WARP_ES else 'block')
     forced = [tv.edit_stream_cuda(fmt, planes, t_u8, e, force=v)
               for v in ('warp', 'block')]
     torch.cuda.synchronize()
-    assert tv.launches == before + 3 and tv.last_variant == 'block'
+    assert sum(tv.launches.values()) == before + 3
+    assert tv.last_variant == 'block'
     for out in (got, *forced):
         for a, b in zip(want, out):
             assert a.dtype == b.dtype and torch.equal(a, b)
@@ -184,5 +205,20 @@ def test_cuda_block_global_matches_plain(cuda_device):
     got = tv.edit_stream_cuda('cols', planes, t_u8, 4096)
     torch.cuda.synchronize()
     assert tv.last_variant == 'block-global'
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [512, 40000, 65536])
+def test_cuda_wide_long_text_matches_plain(cuda_device, m):
+    """A long text's one row on the wide format (m past 32,768: the block
+    variant; at 65,536 its bitmasks are exactly 48 KB, which with the
+    scan's static storage needs the shared-memory opt-in) and a
+    warp-width row, against the plain version."""
+    planes, t_u8, want = _card_case(cuda_device, 'wide', 1, m, 64, m)
+    got = tv.edit_stream_cuda('wide', planes, t_u8, 64)
+    torch.cuda.synchronize()
+    assert tv.last_variant == ('warp' if m <= tv.M_WARP_ES else 'block')
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``automerge_tpu_torch``
-(nor ``chip_smoke.py``) imports JAX or the JAX package, importing it
-loads neither, and its entry points refuse to fall back to the CPU when
-CUDA is missing."""
+(nor ``chip_smoke.py``, nor the port's ``tools/torch_*.py``) imports JAX
+or the JAX package, importing it loads neither, and its entry points
+refuse to fall back to the CPU when CUDA is missing."""
 
 import ast
 import os
@@ -18,7 +18,10 @@ PKG = os.path.join(ROOT, 'automerge_tpu_torch')
 
 
 def _port_sources():
+    tools = os.path.join(ROOT, 'tools')
     out = [os.path.join(ROOT, 'chip_smoke.py')]
+    out += [os.path.join(tools, f) for f in os.listdir(tools)
+            if f.startswith('torch_') and f.endswith('.py')]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
@@ -122,6 +125,13 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ds.apply_states({'d': b''})
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        general.apply_general_block_async(ds.store, None)
+        ds.extract_doc_state(['d'])
+    # the async apply is ported: it resolves to a patch
+    fut = general.apply_general_block_async(ds.store, ds.store.encode_changes(
+        [[{'actor': 'a', 'seq': 1, 'deps': {}, 'ops': [
+            {'action': 'set', 'obj': '00000000-0000-0000-0000-000000000000',
+             'key': 'k', 'value': 1}]}], []]))
+    assert fut.diffs(0)
+    general.close_general(ds.store)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         Options().make_mesh()

@@ -9,8 +9,10 @@ numpy-seeded random, prepend and chain trees — exact equality, dtypes
 included. The CUDA kernels are held against the plain versions on the
 card (``cuda``-marked cases: every output, ``tree_pos`` on valid rows;
 the narrow kernel at every width up to 512, the wide one at every width
-including its global-memory variant; run there with ``python -m pytest
-tests/test_torch_rga_kernel.py -m cuda``). The JAX package is imported
+including its global-memory variant; the delta mode, narrow and through
+the sort + wide kernel, on ``tree_pos`` of valid rows; run there with
+``python -m pytest tests/test_torch_rga_kernel.py -m cuda``). The JAX
+package is imported
 inside the tests that compare with it, so the card's cases need only the
 port."""
 
@@ -20,7 +22,7 @@ import torch
 
 from automerge_tpu_torch.device import cuda_sequence, sequence
 
-from chip_smoke import TREES, random_trees, wide_key_trees
+from chip_smoke import TREES, delta_forests, random_trees, wide_key_trees
 
 torch.set_num_threads(1)
 
@@ -84,9 +86,9 @@ def test_rga_plain_matches_jax_rga_order_batched(tree, K, m):
 def test_cpu_planes_take_the_plain_version():
     planes = [torch.as_tensor(p)
               for p in random_trees(np.random.default_rng(4), 5, 40)]
-    before = cuda_sequence.launches
+    before = sum(cuda_sequence.launches.values())
     got = sequence._rga_order_batched(*planes)
-    assert cuda_sequence.launches == before
+    assert sum(cuda_sequence.launches.values()) == before
     want = sequence._order_from_sorted_plain(*_sorted_inputs(planes))
     for k in OUTS:
         assert got[k].dtype == torch.int32 and torch.equal(got[k], want[k])
@@ -102,6 +104,19 @@ def test_dispatch_bounds():
     assert 1 <= cuda_sequence.M_NARROW <= 512
     assert cuda_sequence.variant(1) == 'narrow'
     assert cuda_sequence.variant(cuda_sequence.M_NARROW) == 'narrow'
+    assert cuda_sequence.variant(9) == 'narrow'
+
+
+def test_cpu_delta_planes_take_the_plain_version():
+    planes = [torch.as_tensor(p)
+              for p in delta_forests(np.random.default_rng(4), 5, 33)]
+    before = sum(cuda_sequence.launches.values())
+    got = sequence._rga_delta_order_batched(*planes)
+    assert sum(cuda_sequence.launches.values()) == before
+    assert got.dtype == torch.int32
+    assert torch.equal(got, sequence._rga_delta_order_plain(*planes))
+    with pytest.raises(ValueError):
+        cuda_sequence.rga_delta_cuda(*planes, rounds=7)
 
 
 @pytest.fixture
@@ -130,10 +145,10 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
     planes = [torch.as_tensor(p).to(cuda_device)
               for p in random_trees(np.random.default_rng(K + m), K, m)]
     want = sequence._order_from_sorted_plain(*_sorted_inputs(planes))
-    before = cuda_sequence.launches
+    before = sum(cuda_sequence.launches.values())
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()
-    assert cuda_sequence.launches == before + 1
+    assert sum(cuda_sequence.launches.values()) == before + 1
     assert cuda_sequence.uses_global_scratch(m) == (m == 40000)
     assert cuda_sequence.last_variant == cuda_sequence.variant(m)
     valid = planes[4]
@@ -143,6 +158,21 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
             assert torch.equal(got[k][valid], want[k][valid]), k
         else:
             assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [3070, 3071])
+def test_cuda_wide_kernel_at_the_default_smem_edge(cuda_device, m):
+    """Widths whose four planes stay within 48 KB of dynamic shared
+    memory but pass it with the block scan's static storage: the launch
+    must opt in."""
+    planes = _card_planes('random', 4, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    got = sequence._rga_order_batched(*planes)
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'wide'
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
 
 
 def _widths():
@@ -158,10 +188,10 @@ def test_cuda_dispatch_matches_plain(cuda_device, tree, i):
     K = max(2, min(64, 200_000 // m))
     planes = _card_planes(tree, K, m, cuda_device)
     want = sequence._rga_order_plain(*planes)
-    before = cuda_sequence.launches
+    before = sum(cuda_sequence.launches.values())
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()
-    assert cuda_sequence.launches == before + 1
+    assert sum(cuda_sequence.launches.values()) == before + 1
     expect = 'narrow' if m <= cuda_sequence.M_NARROW else \
         'wide-global' if m >= 12800 else 'wide'
     assert cuda_sequence.variant(m) == cuda_sequence.last_variant == expect
@@ -205,3 +235,62 @@ def test_cuda_narrow_path_makes_no_sort(cuda_device, monkeypatch):
     assert cuda_sequence.last_variant == 'narrow'
     _same({k: v.cpu() for k, v in got.items()},
           {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
+
+
+def _delta_planes(K, m, dev, seed=0):
+    return [torch.as_tensor(p).to(dev)
+            for p in delta_forests(np.random.default_rng(K + m + seed), K,
+                                   m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K,m', [(64, 9), (37, 33), (16, 129), (4, 513),
+                                 (10240, 9), (1, 4096)])
+def test_cuda_delta_dispatch_matches_plain(cuda_device, K, m):
+    """The delta orderer on the card: the narrow kernel's delta mode up
+    to M_NARROW, the sort with the anchor key + wide kernel above; the
+    anchors reach 2^22 - 1 and the elems pass 2^15, so the packed key
+    takes its 64-bit word or the full key."""
+    planes = _delta_planes(K, m, cuda_device)
+    want = sequence._rga_delta_order_plain(*planes)
+    before = dict(cuda_sequence.launches)
+    got = sequence._rga_delta_order_batched(*planes)
+    torch.cuda.synchronize()
+    v = cuda_sequence.variant(m)
+    key = ('delta' if v == 'narrow' else 'order', v)
+    assert cuda_sequence.last_variant == v
+    assert cuda_sequence.launches[key] == before.get(key, 0) + 1
+    valid = planes[4]
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got[valid], want[valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 2, 31, 32, 33, 64, 100, 256, 257, 512])
+def test_cuda_delta_narrow_at_every_width(cuda_device, m):
+    K = max(2, min(300, 100_000 // m))
+    planes = _delta_planes(K, m, cuda_device, seed=1)
+    want = sequence._rga_delta_order_plain(*planes)
+    before = cuda_sequence.launches.get(('delta', 'narrow'), 0)
+    got = cuda_sequence.rga_delta_cuda(*planes[:4], planes[4],
+                                       rounds=sequence._ceil_log2(m) + 1)
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'narrow'
+    assert cuda_sequence.launches[('delta', 'narrow')] == before + 1
+    valid = planes[4]
+    assert torch.equal(got[valid], want[valid])
+
+
+@pytest.mark.cuda
+def test_cuda_delta_with_zero_anchors_is_the_rebuild_order(cuda_device):
+    """With every anchor 0 the delta key is the rebuild's key: the delta
+    mode's tree_pos equals the narrow kernel's on the same tree."""
+    planes = _card_planes('random', 300, 64, cuda_device)
+    parent, elem, actor, visible, valid = planes
+    rounds = sequence._ceil_log2(64) + 1
+    want = cuda_sequence.rga_order_cuda(parent, elem, actor, valid, valid,
+                                        rounds=rounds)['tree_pos']
+    got = cuda_sequence.rga_delta_cuda(parent, torch.zeros_like(parent),
+                                       elem, actor, valid, rounds=rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[valid], want[valid])

@@ -86,3 +86,20 @@ def test_stable_lexsort_matches_jnp_lexsort():
     assert np.array_equal(want, got)
     # jnp.lexsort is the stable numpy lexsort
     assert np.array_equal(want[0], np.lexsort([k[0] for k in keys]))
+
+
+@pytest.mark.parametrize('K,m', [(6, 9), (5, 33), (4, 129), (2, 513)])
+def test_rga_delta_order_matches_jax(K, m):
+    """The delta orderer's plain version (the CPU path of
+    ``_rga_delta_order_batched``) against the JAX package's on seeded
+    delta forests: anchors up to 2^22 - 1, elems past 2^15, ties, and
+    padding rows with garbage parents; tree_pos on valid rows."""
+    from chip_smoke import delta_forests
+    planes = delta_forests(np.random.default_rng(7 * m + K), K, m)
+    want = np.asarray(js._rga_delta_order_batched(
+        *[jnp.asarray(p) for p in planes]))
+    got = ts._rga_delta_order_batched(*[torch.as_tensor(p)
+                                        for p in planes]).numpy()
+    valid = planes[4]
+    assert want.dtype == got.dtype
+    assert np.array_equal(want[valid], got[valid])
