@@ -172,6 +172,21 @@ class LazyValues:
         return type(self)(buf, new_starts, new_ends)
 
 
+class TaggedValues(LazyValues):
+    """Op values as TAGGED binary spans into a columnar v2 wire
+    container (tag byte + payload — see ``wire.py``'s literal tags),
+    decoded lazily on first access like their JSON twins. Only the
+    composite tag (6) touches a JSON decoder, and only when such a
+    value is actually materialized — the v2 apply path itself is
+    JSON-free."""
+
+    __slots__ = ()
+
+    def _decode(self, raw):
+        from .. import wire as _wire
+        return _wire.decode_tagged_literal(raw)
+
+
 class ValueTable:
     """The store's value store: plain appended values plus lazily-decoded
     wire segments, indexable in append order. ``extend`` of a
@@ -1042,9 +1057,19 @@ class BlockStore:
             n_total += len(blobs)
         n_miss = 0
         if misses:
-            raise NotImplementedError(
-                'encoding changes for the wire needs the wire layer, '
-                'which is not ported yet (ROADMAP A.6)')
+            from .. import wire as _wire
+            encoder = _wire.encode_change_rows if version == 1 \
+                else _wire.encode_change_rows_columnar if version == 2 \
+                else _wire.encode_change_rows_columnar_v3
+            for block, entries in misses.values():
+                n_miss += len(entries)
+                encoded = encoder(block, [c for c, _, _, _ in entries])
+                for (c, key, lst, i), blob in zip(entries, encoded):
+                    cache[key] = blob
+                    self._wire_cache_bytes += _wire_entry_bytes(blob)
+                    lst[i] = blob
+            metrics.set_gauge('sync_wire_cache_bytes',
+                              self._wire_cache_bytes)
         self.wire_cache_misses += n_miss
         self.wire_cache_hits += n_total - n_miss
         metrics.bump('wire_encode_cache_misses', n_miss)

@@ -774,7 +774,8 @@ class GeneralStore(BlockStore):
         package's or the JAX package's — the format is shared) on
         ``device``, with no replay: the packed, wide or cols mirror is
         rebuilt from the restored host columns. A compacted (tiered) snapshot
-        needs the compaction layer, which is not ported yet."""
+        restores its horizon records and retained tail through
+        :mod:`..compaction`, so the store stays servable."""
         import io
         import json as _json2
         with np.load(io.BytesIO(data)) as z:
@@ -782,11 +783,6 @@ class GeneralStore(BlockStore):
             if meta.get('format') != \
                     'automerge-tpu-general-snapshot@1':
                 raise ValueError('not a general-store snapshot')
-            if meta.get('tiers', 1) >= 2 and 'horizon' in meta:
-                raise NotImplementedError(
-                    'compacted (tiered) general snapshots need the '
-                    'compaction layer, which is not ported yet '
-                    '(ROADMAP A.6)')
             store = cls(meta['n_docs'],
                         retain_log=meta.get('retain_log', True),
                         device=device)
@@ -858,6 +854,27 @@ class GeneralStore(BlockStore):
             # store stays fully servable (state for peers behind the
             # horizon, tail replay for everyone else)
             store.log_truncated = True
+            if meta.get('tiers', 1) >= 2 and 'horizon' in meta:
+                hz_meta = meta['horizon']
+                hz_doc = z['hz_doc']
+                hz_off = z['hz_off']
+                hz_blob = z['hz_blob'].tobytes()
+                for i, d in enumerate(hz_doc.tolist()):
+                    rec = hz_meta[str(d)]
+                    blob = hz_blob[int(hz_off[i]):int(hz_off[i + 1])]
+                    store.horizon[int(d)] = {
+                        'clock': dict(rec['clock']),
+                        'digest': rec['digest'],
+                        'state': blob or None}
+                from .. import compaction as _compaction
+                store.retained = _compaction._encode_retained(
+                    store, {int(d): ch
+                            for d, ch in meta.get('tail',
+                                                  {}).items()})
+                store.log_truncated = False
+                from ..utils.metrics import metrics as _metrics2
+                _metrics2.set_gauge('mem_state_snapshot_bytes',
+                                    store.state_snapshot_bytes())
             # state digests ride the snapshot (they cannot be refolded
             # once the bodies are gone); a pre-digest snapshot resumes
             # with digests INVALID — it must not advertise zeros

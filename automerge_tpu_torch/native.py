@@ -27,9 +27,9 @@ This is the PyTorch port's copy of ``automerge_tpu/native.py``: it reads
 the SAME C++ sources (``native/seq_index.cpp``, ``native/wire_codec.cpp``
 at the repository root, never edited) and builds them with g++ into this
 package's own ``_native/`` directory. It binds the sequence index, the
-native general stager (``amst_stage_general``) and the view gathers; the
-wire-blob emit and columnar codec entry points belong to the wire layer,
-which is not ported yet (ROADMAP A.6).
+native general stager (``amst_stage_general``), the view gathers, and
+the codec's wire-blob emit and columnar v2/v3 entry points that
+:mod:`.wire` calls.
 """
 
 import ctypes
@@ -489,6 +489,126 @@ def view_walk(objs, pool):
     return seg, loc, counts
 
 
+# ---------------------------------------------------------------------------
+# Native wire-blob emit (the amwe_* entry points of libamwire.so): change
+# rows of a retained ChangeBlock -> compact canonical JSON bytes, the
+# encode half of the zero-re-encode sync tick. Byte-identical to the
+# Python fallback in `wire._emit_change_py` by construction — the host
+# pre-escapes every string literal; C++ only splices spans and formats
+# integers.
+
+_EMIT_LIB = None
+_EMIT_ATTEMPTED = False
+
+
+def _bind_emit(lib):
+    lib.amwe_emit_general.argtypes = [
+        _i64, _P64,                                  # rows
+        _P32, _P32, _P32, _P32, _P32,                # change columns
+        _P32, _P8, _P32, _P8, _P32, _P32, _P32,      # op columns
+        _P32,                                        # val_local
+        ctypes.c_char_p, _P64, ctypes.c_char_p, _P64,
+        ctypes.c_char_p, _P64, ctypes.c_char_p, _P64]
+    lib.amwe_emit_general.restype = ctypes.c_void_p
+    lib.amwe_bytes.argtypes = [ctypes.c_void_p]
+    lib.amwe_bytes.restype = _i64
+    lib.amwe_fill.argtypes = [ctypes.c_void_p, ctypes.c_char_p, _P64]
+    lib.amwe_fill.restype = None
+    lib.amwe_free.argtypes = [ctypes.c_void_p]
+    lib.amwe_free.restype = None
+    return lib
+
+
+def emit_lib():
+    """The wire-emit library, or None (no native codec / stale binary
+    without the amwe_* symbols / AUTOMERGE_TPU_NATIVE_EMIT=0)."""
+    global _EMIT_LIB, _EMIT_ATTEMPTED
+    if _EMIT_ATTEMPTED:
+        return _EMIT_LIB
+    _EMIT_ATTEMPTED = True
+    if os.environ.get('AUTOMERGE_TPU_NATIVE_EMIT', '1') == '0':
+        return None
+    # through the wire module: it binds the parse entry points that
+    # share this handle (the columnar parse reads its results with them)
+    from . import wire as _wire
+    lib = _wire._load()
+    if lib is None:
+        return None
+    try:
+        _EMIT_LIB = _bind_emit(lib)
+    except AttributeError:
+        _EMIT_LIB = None             # stale .so predating the emitter
+    return _EMIT_LIB
+
+
+def emit_available():
+    return emit_lib() is not None
+
+
+def _lit_blob(lits):
+    """(concatenated bytes, int64 offsets) of a literal table."""
+    blob = b''.join(lits)
+    off = _np.zeros(len(lits) + 1, _np.int64)
+    if lits:
+        _np.cumsum([len(x) for x in lits], out=off[1:])
+    return blob, off
+
+
+def emit_change_rows(block, rows_arr, lits, vlits, sel, use, v):
+    """Native batch emit of general-block change rows: one ``bytes``
+    per row, or None when the library is unavailable (the caller falls
+    back to the Python emitter). ``lits`` are the block's pre-escaped
+    (actors, keys, objs) literal tables; ``vlits`` maps referenced
+    value rows to their literal bytes; ``sel``/``use``/``v`` is the
+    caller's op selection (``wire._op_selection`` — computed once,
+    shared with the value-literal build)."""
+    lib = emit_lib()
+    if lib is None:
+        return None
+    # joined table blobs cache on the block next to the literal lists
+    # (wire._block_lits) — a fleet serve must not re-join per call
+    cacheobj = block._wire_lits if isinstance(block._wire_lits, dict) \
+        else None
+    blobs = cacheobj.get('blobs') if cacheobj is not None else None
+    if blobs is None:
+        actors_l, keys_l, objs_l = lits
+        blobs = (_lit_blob(actors_l), _lit_blob(keys_l),
+                 _lit_blob(objs_l))
+        if cacheobj is not None:
+            cacheobj['blobs'] = blobs
+    (a_b, a_off), (k_b, k_off), (o_b, o_off) = blobs
+    vids = _np.asarray(sorted(vlits), _np.int64)
+    v_b, v_off = _lit_blob([vlits[int(i)] for i in vids])
+    # per-op local value index (-1 none), filled for the selected ops
+    # only — one vectorized remap, no per-op Python
+    val_local = _np.full(block.n_ops, -1, _np.int32)
+    if len(vids) and len(sel):
+        val_local[sel[use]] = _np.searchsorted(
+            vids, v[use]).astype(_np.int32)
+    h = lib.amwe_emit_general(
+        len(rows_arr), _p64(rows_arr),
+        _p32(block.actor), _p32(block.seq),
+        _p32(block.dep_ptr), _p32(block.dep_actor),
+        _p32(block.dep_seq),
+        _p32(block.op_ptr), _p8(block.action), _p32(block.obj),
+        _p8(block.key_kind), _p32(block.key), _p32(block.key_elem),
+        _p32(block.elem), _p32(val_local),
+        a_b, _p64(a_off), k_b, _p64(k_off),
+        o_b, _p64(o_off), v_b, _p64(v_off))
+    if not h:
+        raise MemoryError('native wire emit allocation failed')
+    try:
+        nbytes = int(lib.amwe_bytes(h))
+        buf = ctypes.create_string_buffer(max(nbytes, 1))
+        offsets = _np.empty(len(rows_arr) + 1, _np.int64)
+        lib.amwe_fill(h, buf, _p64(offsets))
+        raw = buf.raw[:nbytes]
+    finally:
+        lib.amwe_free(h)
+    return [raw[offsets[i]:offsets[i + 1]]
+            for i in range(len(rows_arr))]
+
+
 def _p32(a):
     return a.ctypes.data_as(_P32)
 
@@ -667,3 +787,126 @@ def stage_general_block(block, chg_local, a_tab, k_tab, omap, root_row,
         lib.amst_free(h)
         return None
     return GeneralStagedPlanes(lib, h, keep)
+
+
+# ---------------------------------------------------------------------------
+# Native columnar v2/v3 codec (the amwe_emit_columnar[_v3] /
+# amst_parse_columnar[_v3] entry points of libamwire.so): the JSON-free
+# binary wire format. Emit returns varint column bodies plus per-change
+# global ref lists — the host maps refs to tagged literal bytes
+# (wire.py), so the Python fallback is byte-identical by construction.
+# Parse fills the same Parsed struct the JSON parsers fill (extracted
+# via the amwc_* accessors in wire._extract_block). v3 adds RLE on the
+# action and obj columns; the session string-table layer lives entirely
+# host-side (wire.py), so the C boundary is unchanged beyond the two
+# extra symbols.
+
+_COLUMNAR_LIB = None
+_COLUMNAR_ATTEMPTED = False
+
+_COL_EMIT_ARGTYPES = [
+    _i64, _P64,                                  # rows
+    _P32, _P32, _P32, _P32, _P32,                # change columns
+    _P32, _P8, _P32, _P8, _P32, _P32, _P32,      # op columns
+    _P32]                                        # value column
+
+
+def _bind_columnar(lib):
+    for emit in (lib.amwe_emit_columnar, lib.amwe_emit_columnar_v3):
+        emit.argtypes = _COL_EMIT_ARGTYPES
+        emit.restype = ctypes.c_void_p
+    lib.amwe_col_bytes.argtypes = [ctypes.c_void_p]
+    lib.amwe_col_bytes.restype = _i64
+    lib.amwe_col_refs.argtypes = [ctypes.c_void_p]
+    lib.amwe_col_refs.restype = _i64
+    lib.amwe_col_fill.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                  _P64, _P64, _P64]
+    lib.amwe_col_fill.restype = None
+    lib.amwe_col_free.argtypes = [ctypes.c_void_p]
+    lib.amwe_col_free.restype = None
+    for parse in (lib.amst_parse_columnar, lib.amst_parse_columnar_v3):
+        parse.argtypes = [ctypes.c_char_p, _i64]
+        parse.restype = ctypes.c_void_p
+    return lib
+
+
+def columnar_lib():
+    """The columnar v2/v3 codec library, or None (no native codec /
+    stale binary without the columnar symbols /
+    AUTOMERGE_TPU_NATIVE_COLUMNAR=0)."""
+    global _COLUMNAR_LIB, _COLUMNAR_ATTEMPTED
+    if _COLUMNAR_ATTEMPTED:
+        return _COLUMNAR_LIB
+    _COLUMNAR_ATTEMPTED = True
+    if os.environ.get('AUTOMERGE_TPU_NATIVE_COLUMNAR', '1') == '0':
+        return None
+    # through the wire module: it binds the parse entry points that
+    # share this handle (the columnar parse reads its results with them)
+    from . import wire as _wire
+    lib = _wire._load()
+    if lib is None:
+        return None
+    try:
+        _COLUMNAR_LIB = _bind_columnar(lib)
+    except AttributeError:
+        _COLUMNAR_LIB = None         # stale .so predating the codec
+    return _COLUMNAR_LIB
+
+
+def columnar_available():
+    return columnar_lib() is not None
+
+
+def columnar_v3_available():
+    """_bind_columnar binds the v2 and v3 symbols together (a stale
+    .so missing either fails the whole bind), so v3 availability is
+    the same predicate — kept distinct so CI can assert the v3 emit/
+    parse arms by name."""
+    lib = columnar_lib()
+    return lib is not None and \
+        hasattr(lib, 'amwe_emit_columnar_v3') and \
+        hasattr(lib, 'amst_parse_columnar_v3')
+
+
+def emit_columnar_rows(block, rows_arr):
+    """Native columnar v2 emit of general-block change rows: one
+    ``(body bytes, global ref list)`` per row, or None when the library
+    is unavailable (the caller falls back to the Python emitter)."""
+    return _emit_columnar_rows(block, rows_arr, 'amwe_emit_columnar')
+
+
+def emit_columnar_rows_v3(block, rows_arr):
+    """Native columnar v3 emit (RLE action/obj columns) — same contract
+    as :func:`emit_columnar_rows`."""
+    return _emit_columnar_rows(block, rows_arr, 'amwe_emit_columnar_v3')
+
+
+def _emit_columnar_rows(block, rows_arr, sym):
+    lib = columnar_lib()
+    if lib is None:
+        return None
+    h = getattr(lib, sym)(
+        len(rows_arr), _p64(rows_arr),
+        _p32(block.actor), _p32(block.seq),
+        _p32(block.dep_ptr), _p32(block.dep_actor),
+        _p32(block.dep_seq),
+        _p32(block.op_ptr), _p8(block.action), _p32(block.obj),
+        _p8(block.key_kind), _p32(block.key), _p32(block.key_elem),
+        _p32(block.elem), _p32(block.value))
+    if not h:
+        raise MemoryError('native columnar emit allocation failed')
+    try:
+        nbytes = int(lib.amwe_col_bytes(h))
+        n_refs = int(lib.amwe_col_refs(h))
+        buf = ctypes.create_string_buffer(max(nbytes, 1))
+        body_off = _np.empty(len(rows_arr) + 1, _np.int64)
+        refs = _np.empty(max(n_refs, 1), _np.int64)
+        refs_off = _np.empty(len(rows_arr) + 1, _np.int64)
+        lib.amwe_col_fill(h, buf, _p64(body_off), _p64(refs),
+                          _p64(refs_off))
+        raw = buf.raw[:nbytes]
+    finally:
+        lib.amwe_col_free(h)
+    return [(raw[body_off[i]:body_off[i + 1]],
+             refs[refs_off[i]:refs_off[i + 1]].tolist())
+            for i in range(len(rows_arr))]

@@ -19,11 +19,7 @@ view from the entry columns and the insertion-tree pool on demand.
 
 This is the PyTorch port's copy. A doc set lives on one ``device``
 (CUDA by default; the constructor raises without a card unless
-``device='cpu'`` is asked for). The wire path (:meth:`apply_wire`), the
-state-snapshot bootstrap and eviction (:meth:`apply_states`,
-:meth:`extract_doc_state`, :meth:`drop_doc_state`) need the wire,
-compaction and serving layers, which are not ported yet (ROADMAP A.6):
-they raise ``NotImplementedError``.
+``device='cpu'`` is asked for).
 """
 
 import time as _time
@@ -82,18 +78,6 @@ DEFAULT_HEALTH_THRESHOLDS = {
     'membership': (1, None),
 }
 _HEALTH_RANK = {'green': 0, 'degraded': 1, 'critical': 2}
-
-
-class SnapshotCorruptError(ValueError):
-    """A snapshot payload failed validation: truncated bytes, non-JSON
-    text, or a missing/mistyped field (the port's copy of
-    ``automerge_tpu.snapshot.SnapshotCorruptError``)."""
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f'{what} needs the wire, compaction and serving layers, which '
-        f'are not ported yet (ROADMAP A.6)')
 
 
 def _latency_quantiles(series):
@@ -703,7 +687,69 @@ class GeneralDocSet:
         isolate per document (a corrupt payload quarantines the doc,
         never the tick); returns ``{doc_id: handle}`` for the docs
         touched."""
-        raise _not_ported('the state-snapshot bootstrap')
+        from .. import compaction as _compaction
+        store = self.store
+        absorb = []                    # (idx, payload, decoded)
+        replace = []                   # (idx, payload, decoded, local)
+        out = {}
+        for doc_id, payload in payload_by_doc.items():
+            idx = self._index(doc_id, create=True)
+            try:
+                decoded = _compaction.decode_state_snapshot(payload)
+                have = store.clock_of(idx)
+                sclock = decoded['clock']
+                if have and _covers(have, sclock):
+                    out[doc_id] = self.get_doc(doc_id)
+                    continue           # stale ship: local is a superset
+                if not have:
+                    absorb.append((idx, payload, decoded))
+                else:
+                    # concurrent local state: keep what the snapshot
+                    # does not cover, replace the rest (raises the
+                    # clear both-truncated error when local history
+                    # below the snapshot clock is itself gone)
+                    local_only = store.get_missing_changes(idx, sclock)
+                    replace.append((idx, payload, decoded, local_only))
+            except Exception as err:
+                # keep the PAYLOAD in the hold (the change path keeps
+                # its changes): retry_quarantined re-attempts the
+                # absorb for real instead of trivially clearing an
+                # empty change list over a still-empty doc
+                self.quarantined[doc_id] = {'error': repr(err),
+                                            'changes': [],
+                                            'state': bytes(payload)}
+                _metrics.bump('sync_docs_quarantined')
+                if _metrics.active:
+                    _metrics.emit('doc_quarantined', doc_id=doc_id,
+                                  error=repr(err))
+        if replace:
+            self.drop_doc_state([self.ids[i]
+                                 for i, _, _, _ in replace])
+        items = absorb + [(i, p, dec) for i, p, dec, _ in replace]
+        if items:
+            # drop_doc_state REBUILDS the store object: absorb into
+            # the current one, not the pre-drop reference
+            _compaction.absorb_doc_states(self.store, items)
+            _metrics.bump('sync_state_bootstraps', len(items))
+        local_re = {self.ids[i]: ch
+                    for i, _, _, ch in replace if ch}
+        if local_re:
+            self.apply_changes_batch(local_re, isolate=True)
+        if items and self.store.queue:
+            # causally-buffered tail changes that raced ahead of the
+            # state ship merge now instead of waiting for unrelated
+            # traffic
+            queued_docs = {d for d, _ in self.store.queue}
+            kick = {self.ids[i]: [] for i, _, _ in items
+                    if i in queued_docs}
+            if kick:
+                self.apply_changes_batch(kick)
+        for idx, _, _ in items:
+            doc_id = self.ids[idx]
+            doc = out[doc_id] = self.get_doc(doc_id)
+            for handler in list(self.handlers):
+                handler(doc_id, doc)
+        return out
 
     applyStates = apply_states
 
@@ -721,7 +767,41 @@ class GeneralDocSet:
         the ``state + tail`` park tier. Raises the store's
         retention ValueError only when neither tier can represent the
         doc."""
-        raise _not_ported('cold-doc eviction')
+        import base64
+        store = self.store
+        store._commit_pending()
+        store.pool.sync()
+        queued = {}                    # idx -> buffered changes
+        want = {self.id_of[d] for d in doc_ids}
+        for d, ch in store.queue:
+            if d in want:
+                queued.setdefault(d, []).append(ch)
+        digests_ok = getattr(store, '_digest_valid', False)
+        out = {}
+        state_docs = []
+        for doc_id in doc_ids:
+            idx = self.id_of[doc_id]
+            rec = {
+                'doc_id': doc_id,
+                'clock': store.clock_of(idx),
+                'queued': queued.get(idx, []),
+                # the recorded digest keeps the divergence audit (and
+                # its heartbeat advertisement) truthful while the doc
+                # is parked; fault-in refolds it from the replay
+                'digest': store.digest_of(idx) if digests_ok else None}
+            if idx in store.horizon or store.log_truncated:
+                state_docs.append((doc_id, idx))
+            else:
+                rec['changes'] = store.get_missing_changes(idx, {})
+            out[doc_id] = rec
+        if state_docs:
+            from .. import compaction as _compaction
+            states = _compaction.extract_doc_states(
+                store, [idx for _, idx in state_docs])
+            for doc_id, idx in state_docs:
+                out[doc_id]['state'] = base64.b64encode(
+                    states[idx]['state']).decode('ascii')
+        return out
 
     def drop_doc_state(self, doc_ids, chunk_docs=512):
         """Release the store state of ``doc_ids`` (call
@@ -734,7 +814,61 @@ class GeneralDocSet:
         words and encode-cache entries of the dropped docs are
         released wholesale. Per-doc applied versions carry over, so
         cached views of the surviving docs keep serving."""
-        raise _not_ported('cold-doc eviction')
+        drop = {self.id_of[d] for d in doc_ids}
+        old = self.store
+        old._commit_pending()
+        old.pool.sync()
+        new_store = _general.init_store(self.capacity,
+                                        device=self.device)
+        resident = [i for i in range(len(self.ids)) if i not in drop]
+        # compacted survivors restore tiered: their state-at-horizon
+        # absorbs wholesale (no pre-horizon bodies exist to replay),
+        # then the retained TAIL re-applies on top like any other log
+        compacted = [i for i in resident if i in old.horizon]
+        if compacted:
+            from .. import compaction as _compaction
+            _compaction.absorb_doc_states(
+                new_store,
+                [(i, old.horizon[i]['state'], None)
+                 for i in compacted])
+        horizon_clock = {i: old.horizon[i]['clock'] for i in compacted}
+        for start in range(0, len(resident), chunk_docs):
+            batch = resident[start:start + chunk_docs]
+            per_doc = [[] for _ in range(max(batch) + 1)]
+            any_changes = False
+            for i in batch:
+                changes = old.get_missing_changes(
+                    i, horizon_clock.get(i, {}))
+                if changes:
+                    per_doc[i] = changes
+                    any_changes = True
+            if any_changes:
+                block = new_store.encode_changes(per_doc,
+                                                 n_docs=self.capacity)
+                _general.apply_general_block(new_store, block,
+                                             options=self._options)
+        # causally-buffered changes of surviving docs ride along (they
+        # merge into the next apply, exactly as they would have)
+        new_store.queue = [(d, ch) for d, ch in old.queue
+                           if d not in drop]
+        # applied versions carry over so the dirty-doc view cache stays
+        # keyed correctly: surviving docs' cached views remain valid
+        # (identical state), and the NEXT real apply still bumps past
+        # every carried version
+        new_store._doc_version = old._doc_version.copy()
+        new_store._apply_seq = max(old._apply_seq,
+                                   new_store._apply_seq)
+        # the rebuild refolded surviving docs' digests from their
+        # replayed logs (and absorbed horizon digests); an invalid
+        # source history stays invalid either way
+        new_store._digest_valid = (old._digest_valid and
+                                   new_store._digest_valid)
+        new_store.adopt_wire_cache(old, drop_docs=drop)
+        self.store = new_store
+        for i in drop:
+            self._views.pop(i, None)
+            self._view_ver[i] = -1
+        self._entry_csr = (None, None, None)
 
     def fleet_status(self, docs=True):
         """Operator surface over the whole fleet (ROADMAP "Quarantine
@@ -984,7 +1118,60 @@ class GeneralDocSet:
         pure-Python edges when the codec library is unavailable.
 
         Returns the list of touched :class:`GeneralDocHandle`."""
-        raise _not_ported('apply_wire')
+        from ..wire import (COLUMNAR_MAGIC, COLUMNAR_MAGIC_V3,
+                            parse_columnar_block, parse_general_block)
+        from ..device.blocks import ChangeBlock
+        t0 = _time.perf_counter()
+        head = bytes(data[:4]) \
+            if isinstance(data, (bytes, bytearray, memoryview)) else b''
+        columnar = head in (COLUMNAR_MAGIC, COLUMNAR_MAGIC_V3)
+        with _metrics.trace_span(
+                'wire.parse', n_bytes=len(data),
+                v=3 if head == COLUMNAR_MAGIC_V3
+                else 2 if columnar else 1):
+            if columnar:
+                block = parse_columnar_block(data)
+            else:
+                block = parse_general_block(data, store=self.store)
+            _metrics.observe('sync_wire_parse_ms',
+                             (_time.perf_counter() - t0) * 1e3)
+        n = block.n_docs
+        if doc_ids is None:
+            doc_ids = [f'doc-{i}' for i in range(n)]
+        elif len(doc_ids) != n:
+            raise ValueError(
+                f'wire block carries {n} documents, got '
+                f'{len(doc_ids)} doc ids')
+        for doc_id in doc_ids:
+            self._index(doc_id, create=True)
+        # widen the block's doc axis to the store capacity (documents
+        # map positionally: doc_ids[i] -> store index of that id)
+        idx_of = [self.id_of[doc_id] for doc_id in doc_ids]
+        if idx_of != list(range(n)) or n != self.capacity:
+            remap = np.asarray(idx_of, np.int32)
+            block = ChangeBlock(
+                self.capacity,
+                remap[block.doc] if block.n_changes else block.doc,
+                block.actor, block.seq, block.dep_ptr, block.dep_actor,
+                block.dep_seq, block.op_ptr, block.action, block.key,
+                block.value, block.actors, block.keys, block.values,
+                dup_keys=block._dup_keys, obj=block.obj,
+                key_kind=block.key_kind, key_elem=block.key_elem,
+                elem=block.elem, objs=block.objs)
+        with _metrics.trace_span('doc_set.apply_wire',
+                                 docs=len(doc_ids)):
+            self.last_patch = _general.apply_general_block(
+                self.store, block, options=self._options)
+        _metrics.observe('sync_apply_ms',
+                         (_time.perf_counter() - t0) * 1e3)
+        self._note_births(doc_ids)
+        out = []
+        for doc_id in doc_ids:
+            doc = self.get_doc(doc_id)
+            out.append(doc)
+            for handler in list(self.handlers):
+                handler(doc_id, doc)
+        return out
 
     applyWire = apply_wire
 
@@ -1044,6 +1231,7 @@ class GeneralDocSet:
         package's or the JAX package's) on ``device``."""
         import json
         import struct
+        from ..snapshot import SnapshotCorruptError
         if len(data) < 8:
             raise SnapshotCorruptError(
                 f'general-docset snapshot truncated: {len(data)} '
@@ -1076,7 +1264,7 @@ class GeneralDocSet:
             out.ids = list(header['ids'])
             out.id_of = {doc_id: i
                          for i, doc_id in enumerate(out.ids)}
-        except (SnapshotCorruptError, NotImplementedError):
+        except SnapshotCorruptError:
             raise
         except Exception as err:
             raise SnapshotCorruptError(

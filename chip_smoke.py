@@ -51,6 +51,30 @@ exits non-zero without a result line):
    4c. the async apply: two long-text blocks through
    ``apply_general_block_async`` + ``drain_general`` give the sync
    apply's patches;
+   4d. config 5 over the wire: two 10,240-document ``GeneralDocSet``
+   fleets, each behind a ``ResilientConnection(wire=True,
+   wire_version=3)``, joined by in-process queues; tick 1 applied on
+   peer A reaches peer B through ``apply_wire`` as one fused apply, tick
+   2 applied on B reaches A the same way as an incremental update (the
+   native v3 codec forced, the RGA and edit-stream kernels launched on
+   each receiving tick); equal digests and views on both peers and
+   against the CPU fleet of phase 4; then 1,024 documents compacted,
+   extracted, dropped and brought back through ``apply_states``, and a
+   crash of A recovered through ``DurableDocSet.recover``, views and
+   digests unchanged; bytes and messages on the wire and the
+   ``apply_wire`` time by span;
+   4e. config 4: the 180,000-keystroke automerge-perf trace through
+   ``replay_text_block`` (one wide-global RGA launch at m = 196,608),
+   equal to a CPU replay; 16 facade changes typing and deleting at a
+   cursor on the replayed document, each equal to the CPU document's;
+   ``save_snapshot``/``load_snapshot``; the 60,001-change bulk route
+   (``DeviceBackend.apply_changes``, the general engine's wide mirror),
+   its patch equal to the CPU run's; the kernels' share of the replay's
+   and the bulk line's wall time from ``torch.profiler``, and the RGA
+   launch's grid, block and occupancy as its trace records them;
+   4f. the facade on map-only documents from ``init`` (the card by
+   default): 8 actors x 16 set/del ops over 32 keys, merged both ways,
+   equal to the host oracle, through the flat-map kernel;
 5. the per-doc device backend: ``DeviceDocSet(device='cuda')
    .apply_changes_batch`` on a 10,240-document map-only fleet (8
    concurrent actors x 16 set/del ops over 32 keys per document,
@@ -63,14 +87,14 @@ exits non-zero without a result line):
    device busy time against the tick's wall time (the idle share) and
    the kernels that take it;
 7. for every launch key (kernel, mode, variant) the main paths launched
-   (phases 4, 4b and 5): every input the paths handed that launch, as
+   (phases 4 to 5): every input the paths handed that launch, as
    they handed it over, through the dispatch (which must take exactly
    that launch) against the plain version, bit for bit; then, at the
-   largest of those inputs, the kernel's device time (50 launches
-   captured in a CUDA graph, median, min and max of 5 replays), the
-   dispatch called eagerly and the plain version, beside the byte bound
-   and the card's name and power limit; the JSON kernel line (one row
-   per launch key); then the result line.
+   largest of those inputs, the kernel and the plain version of what it
+   computes, each timed from a CUDA graph (median, min and max of 5
+   replays) and eagerly, the dispatch called eagerly, beside the byte
+   bound and the card's name and power limit; the JSON kernel line (one
+   row per launch key); then the result line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after it. The workload generators (``gen_mixed_docs``,
@@ -84,6 +108,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -323,6 +348,526 @@ def wide_planes(pv, nv, pi, ni):
     new = (nv.astype(np.int32) << 22) | (ni + 1)
     return prior.astype(np.int32), new.astype(np.int32)
 
+
+
+def _require_launch(added, kernel, what):
+    """Fail unless ``added`` (launch counts of one run, by key) holds a
+    launch of ``kernel``."""
+    if not any(key[0] == kernel for key in added):
+        raise AssertionError(f'{what} did not launch the {kernel} kernel '
+                             f'(launches: {added})')
+
+
+def _env_bytes(env):
+    """Bytes one envelope puts on the wire: its bytes fields (the blob
+    and the literal table of a wire data message) as they are, every
+    other field as JSON."""
+    def split(obj, raw):
+        if isinstance(obj, (bytes, bytearray)):
+            raw.append(len(obj))
+            return None
+        if isinstance(obj, dict):
+            return {k: split(v, raw) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [split(v, raw) for v in obj]
+        return obj
+    raw = []
+    rest = split(env, raw)
+    return sum(raw) + len(json.dumps(rest, separators=(',', ':')))
+
+
+@contextlib.contextmanager
+def _native_codec_calls(into):
+    """Count the wire v3 codec's native calls in ``into`` ('emit',
+    'parse') while the pure-Python arms are switched off
+    (``_NATIVE_COLUMNAR = True``: a missing native codec raises)."""
+    from automerge_tpu_torch import native as amnative
+    from automerge_tpu_torch import wire as amwire
+    real = (amnative.emit_columnar_rows_v3, amwire.parse_columnar_block,
+            amwire._NATIVE_COLUMNAR)
+
+    def emit(*a, **kw):
+        into['emit'] = into.get('emit', 0) + 1
+        return real[0](*a, **kw)
+
+    def parse(*a, **kw):
+        into['parse'] = into.get('parse', 0) + 1
+        return real[1](*a, **kw)
+
+    amnative.emit_columnar_rows_v3 = emit
+    amwire.parse_columnar_block = parse
+    amwire._NATIVE_COLUMNAR = True
+    try:
+        yield into
+    finally:
+        (amnative.emit_columnar_rows_v3, amwire.parse_columnar_block,
+         amwire._NATIVE_COLUMNAR) = real
+
+
+# the receive tick's spans: the parse, then the fused apply's admit ->
+# stage -> dispatch
+_WIRE_SPANS = ('wire.parse', 'device.admit', 'device.stage',
+               'device.dispatch')
+
+
+def _wire_fleet_path(card, ticks, ids, cpu_ds, sub, inputs, workdir):
+    """Phase 4d: config 5 over the wire. Two ``GeneralDocSet`` fleets on
+    the card, each behind a ``ResilientConnection(wire=True,
+    wire_version=3)``, joined by in-process queues. Peer A (durable:
+    checkpointed after tick 1, every later write journaled) applies
+    tick 1 locally; flushing and delivering until quiet ships it to B,
+    which takes it through ``apply_wire`` as one fused apply and reads
+    its patch. B applies tick 2 locally and ships it back: A takes it
+    through ``apply_wire`` as an incremental update. Both fleets must end
+    with equal per-document digests and views, equal on ``sub`` to
+    ``cpu_ds`` (the CPU fleet of phase 4, same ticks). Then 1,024
+    seeded documents of A are compacted, extracted, dropped and brought
+    back with ``apply_states``, and A crashes and recovers through
+    ``DurableDocSet.recover``: views and digests unchanged each time.
+    Every kernel launch of the phase counts (its counters are set to 0
+    at its start and read at its end) and has its inputs captured.
+    Returns the launch counts, by key."""
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        _wire_fleet_run(card, ticks, ids, cpu_ds, sub, workdir)
+    return _launch_counts()
+
+
+def _wire_fleet_run(card, ticks, ids, cpu_ds, sub, workdir):
+    import base64
+    import torch
+    from automerge_tpu_torch import compaction
+    from automerge_tpu_torch.durability import DurableDocSet
+    from automerge_tpu_torch.sync import GeneralDocSet, ResilientConnection
+    from automerge_tpu_torch.utils.metrics import metrics
+
+    n_docs = len(ids)
+    a_dir = os.path.join(workdir, 'peer_a')
+    peer_a = GeneralDocSet(n_docs, device='cuda')
+    peer_b = GeneralDocSet(n_docs, device='cuda')
+    t0 = time.perf_counter()
+    peer_a.apply_changes_batch({ids[d]: ticks[0][d] for d in range(n_docs)})
+    torch.cuda.synchronize()
+    t_local = (time.perf_counter() - t0) * 1e3
+    peer_a = DurableDocSet(peer_a, a_dir, fsync=False)
+    peer_a.checkpoint()
+    to_a, to_b = [], []
+    conn_a = ResilientConnection(peer_a, to_b.append, wire=True,
+                                 wire_version=3, peer_id='b')
+    conn_b = ResilientConnection(peer_b, to_a.append, wire=True,
+                                 wire_version=3, peer_id='a')
+
+    def pump():
+        """Flush and deliver until quiet: (messages, bytes)."""
+        n_msgs = n_bytes = 0
+        for _ in range(64):
+            conn_a.flush()
+            conn_b.flush()
+            if not (to_a or to_b):
+                return n_msgs, n_bytes
+            for queue, conn in ((to_b, conn_b), (to_a, conn_a)):
+                batch = queue[:]
+                queue.clear()
+                for env in batch:
+                    n_msgs += 1
+                    n_bytes += _env_bytes(env)
+                    conn.receive_msg(env)
+        raise AssertionError('the wire pair did not go quiet')
+
+    def receive(tick, receiver, sender_name, prime):
+        """Drive one tick to ``receiver`` over the wire: returns its
+        apply_wire calls (docs, ms each), the spans, the patch read ms,
+        messages and bytes, the launches and the native codec calls."""
+        calls, spans, native = [], [], {}
+        real = receiver.apply_wire
+
+        def apply_wire(data, doc_ids=None):
+            t = time.perf_counter()
+            out = real(data, doc_ids=doc_ids)
+            torch.cuda.synchronize()
+            calls.append((len(doc_ids or ()), (time.perf_counter() - t)
+                          * 1e3))
+            return out
+
+        def on_event(ev):
+            if ev.get('event') == 'span':
+                spans.append((ev['name'], ev['dur_ms']))
+
+        prime()
+        receiver.apply_wire = apply_wire
+        before = _launch_counts()
+        incr0 = metrics.counters.get('device_idx_incremental_applies', 0)
+        metrics.subscribe(on_event)
+        try:
+            with _native_codec_calls(native):
+                n_msgs, n_bytes = pump()
+                inner = getattr(receiver, 'doc_set', receiver)
+                t = time.perf_counter()
+                patch = inner.last_patch
+                for d in sub:
+                    patch.diffs(inner.id_of[ids[d]])
+                torch.cuda.synchronize()
+                t_read = (time.perf_counter() - t) * 1e3
+        finally:
+            metrics.unsubscribe(on_event)
+            del receiver.apply_wire
+        added = _added(_launch_counts(), before)
+        incr = metrics.counters.get('device_idx_incremental_applies',
+                                    0) - incr0
+        what = f'the wire tick {tick} (from {sender_name})'
+        if incr != (tick == 2):
+            raise AssertionError(f'{what}: {incr} incremental index '
+                                 f'updates (tick 2 must take one, tick 1 '
+                                 f'none)')
+        if len(calls) != 1 or calls[0][0] != n_docs:
+            raise AssertionError(f'{what}: apply_wire calls {calls}, not '
+                                 f'one fused apply of {n_docs} docs')
+        if not native.get('parse') or not native.get('emit'):
+            raise AssertionError(f'{what}: native codec calls {native}')
+        _require_launch(added, 'rga_order', what)
+        _require_launch(added, 'edit_stream', what)
+        n_ops = sum(len(c['ops']) for doc in ticks[tick - 1] for c in doc)
+        sp = {n: _span_sum(spans, n) for n in _WIRE_SPANS}
+        print(f'wire tick {tick} ({sender_name} -> peer, {card}): '
+              f'{n_msgs} messages, {n_bytes} bytes on the wire; apply_wire '
+              f'{calls[0][1]:.1f} ms (' + ', '.join(
+                  f'{n} {v:.1f}' for n, v in sp.items())
+              + f', rest {calls[0][1] - sum(sp.values()):.1f}); patch read '
+              f'of {len(sub)} docs {t_read:.1f} ms; {n_ops} ops, '
+              f'{n_ops / calls[0][1] * 1e3:.0f} ops merged/s by apply_wire;'
+              f' native codec calls {native}; launches {added}',
+              flush=True)
+
+    conn_a.open()
+    conn_b.open()
+    receive(1, peer_b, 'peer A', lambda: None)
+
+    def tick2():
+        t = time.perf_counter()
+        peer_b.apply_changes_batch({ids[d]: ticks[1][d]
+                                    for d in range(n_docs)})
+        torch.cuda.synchronize()
+        print(f'wire tick 2: peer B applied it locally in '
+              f'{(time.perf_counter() - t) * 1e3:.1f} ms', flush=True)
+    receive(2, peer_a, 'peer B', tick2)
+
+    def state(ds):
+        return [ds.digest_of_id(i) for i in ids], ds.materialize_all()
+    t0 = time.perf_counter()
+    digests, views = state(peer_a)
+    if state(peer_b) != (digests, views):
+        raise AssertionError('the wire peers did not converge')
+    for d in sub:
+        if views[ids[d]] != cpu_ds.materialize(ids[d]) or \
+                digests[d] != cpu_ds.digest_of_id(ids[d]):
+            raise AssertionError(f'{ids[d]}: wire peer != cpu fleet')
+    print(f'check: both wire peers have equal digests and views for all '
+          f'{n_docs} docs, equal to the cpu fleet on {len(sub)} '
+          f'({(time.perf_counter() - t0):.1f} s); peer A\'s local tick 1 '
+          f'took {t_local:.1f} ms', flush=True)
+
+    # evict: compact, extract, drop, bring back through apply_states
+    evict = [ids[d] for d in np.sort(np.random.default_rng(3).choice(
+        n_docs, 1024, replace=False))]
+    t0 = time.perf_counter()
+    compaction.compact_docset(peer_a, doc_ids=evict)
+    recs = peer_a.extract_doc_state(evict)
+    if any('state' not in recs[d] for d in evict):
+        raise AssertionError('a compacted doc was extracted without state')
+    peer_a.drop_doc_state(evict)
+    if peer_a.store.clock_of(peer_a.id_of[evict[0]]):
+        raise AssertionError('drop_doc_state kept an evicted doc')
+    t_evict = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    peer_a.apply_states({d: base64.b64decode(recs[d]['state'])
+                         for d in evict})
+    torch.cuda.synchronize()
+    t_back = (time.perf_counter() - t0) * 1e3
+    if state(peer_a) != (digests, views):
+        raise AssertionError('evicted docs came back changed')
+    # crash and recover from the checkpoint + journal
+    peer_a.close()
+    t0 = time.perf_counter()
+    back = DurableDocSet.recover(
+        a_dir, lambda: GeneralDocSet(n_docs, device='cuda'), fsync=False,
+        load_snapshot=lambda b: GeneralDocSet.load_snapshot(b,
+                                                            device='cuda'))
+    torch.cuda.synchronize()
+    t_recover = (time.perf_counter() - t0) * 1e3
+    if state(back) != (digests, views):
+        raise AssertionError('the recovered peer differs')
+    back.close()
+    print(f'evict ({card}): {len(evict)} docs compacted, extracted and '
+          f'dropped in {t_evict:.1f} ms, back through apply_states in '
+          f'{t_back:.1f} ms; crash + DurableDocSet.recover (checkpoint + '
+          f'journal: the wire tick and the state bootstrap) '
+          f'{t_recover:.1f} ms; views and digests unchanged after each',
+          flush=True)
+
+
+def _kernel_share(prof, what, names):
+    """(device busy ms, ms of the kernels whose name holds one of
+    ``names``) of a ``torch.profiler`` capture."""
+    busy, rows = _device_rows(prof, what)
+    return busy, sum(ms for key, ms, _ in rows
+                     if any(n in key for n in names))
+
+
+# the hand kernels' function names, as the profiler lists them
+_RGA_KERNELS = ('rga_order_kernel', 'rga_narrow_kernel')
+_ES_KERNELS = ('es_warp_kernel', 'es_block_kernel')
+
+
+# the launch fields of a kernel event in torch.profiler's exported trace
+_LAUNCH_FIELDS = ('grid', 'block', 'blocks per SM', 'warps per SM',
+                  'est. achieved occupancy %', 'registers per thread',
+                  'shared memory')
+
+
+def _launch_geometry(prof, names):
+    """The launch fields (grid, block, and CUPTI's blocks per SM and
+    estimated achieved occupancy, where the trace holds them) of each
+    launch of the kernels whose name holds one of ``names``, read from
+    ``prof``'s exported trace."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    return [{k: e['args'][k] for k in _LAUNCH_FIELDS if k in e['args']}
+            for e in events if e.get('cat') == 'kernel'
+            and any(n in e.get('name', '') for n in names)]
+
+
+def _profiled(fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _text_edit(pos, k):
+    """Facade edit ``k`` at cursor ``pos`` of a replayed text: type three
+    chars, or delete the two before the cursor (every third edit).
+    Returns (the change callback, the cursor after it)."""
+    if k % 3 == 2 and pos >= 2:
+        def cb(d):
+            d['text'].delete_at(pos - 2)
+            d['text'].delete_at(pos - 2)
+        return cb, pos - 2
+    s = 'xyz' if k % 2 else 'ab\n'
+
+    def cb(d):
+        d['text'].insert_at(pos, *s)
+    return cb, pos + len(s)
+
+
+def _text_trace_path(card, inputs):
+    """Phase 4e: config 4, the automerge-perf trace (BASELINE.md config
+    4; the JAX package's ``bench.py:2446 bench_trace_replay``): the
+    180,000-keystroke trace of ``traces.gen_editing_trace`` through
+    ``TextBlock.from_changes`` and ``replay_text_block`` on the card (one
+    RGA call over the whole insertion tree), checked against a CPU
+    replay; ``to_doc`` and 16 facade changes typing and deleting at a
+    cursor, each equal to the same edits on the CPU document;
+    ``save_snapshot`` / ``load_snapshot``; and the bulk wire-to-patch
+    line: ``DeviceBackend.apply_changes`` of the first 60,001 changes
+    into a fresh document (the general engine, wide
+    mirror), its patch equal to the CPU run's. The counters are set to 0
+    at the start and read before the profiled reruns that give the
+    kernels' share of the wall times. Returns the launch counts, by
+    key."""
+    import torch
+    import automerge_tpu_torch as am
+    from automerge_tpu_torch import traces
+    from automerge_tpu_torch.device import backend as DB
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.device.text_block import (TextBlock,
+                                                       replay_text_block)
+
+    n_edits, n_bulk = 16, 60001
+    t0 = time.perf_counter()
+    trace = traces.gen_editing_trace(180000, seed=0)
+    block = TextBlock.from_changes(trace)
+    t_gen = time.perf_counter() - t0
+
+    def bulk(device):
+        return DB.apply_changes(DB.init(device=device), trace[:n_bulk])
+
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        t0 = time.perf_counter()
+        rep = replay_text_block(block, device='cuda')
+        torch.cuda.synchronize()
+        t_replay = (time.perf_counter() - t0) * 1e3
+        added = _launch_counts()
+        m = int(rep.order['vis_index'].shape[0])
+        if added != {('rga_order', 'order', 'wide-global'): 1}:
+            raise AssertionError(f'config 4 replay launched {added}, not '
+                                 f'one wide-global RGA kernel')
+        t0 = time.perf_counter()
+        ref = replay_text_block(block, device='cpu')
+        t_cpu = (time.perf_counter() - t0) * 1e3
+        text = rep.text()
+        if text != ref.text() or rep.elem_ids() != ref.elem_ids():
+            raise AssertionError('config 4: cuda replay != cpu replay')
+        print(f'config 4 ({card}): {len(trace)} changes, {rep.n_nodes} '
+              f'nodes padded to m = {m}, {len(text)} chars (trace made and '
+              f'blocked in {t_gen:.1f} s); replay_text_block '
+              f'{t_replay:.1f} ms on the card (the cpu replay {t_cpu:.1f} '
+              f'ms);'
+              f' launches {added}; text and elem_ids == cpu', flush=True)
+
+        # the replayed document, edited through the facade at a cursor
+        doc = rep.to_doc(actor_id='author')
+        cdoc = ref.to_doc(actor_id='author')
+        pos = int(np.random.default_rng(4).integers(len(text) // 4,
+                                                    3 * len(text) // 4))
+        times = []
+        for k in range(n_edits):
+            cb, new_pos = _text_edit(pos, k)
+            t0 = time.perf_counter()
+            doc = am.change(doc, cb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            cdoc = am.change(cdoc, cb)
+            got = ''.join(str(c) for c in doc['text'])
+            if got != ''.join(str(c) for c in cdoc['text']):
+                raise AssertionError(f'config 4 edit {k}: cuda text != cpu')
+            pos = new_pos
+        snap = am.save_snapshot(doc)
+        t0 = time.perf_counter()
+        back = am.load_snapshot(snap, actor_id='author')
+        t_load = (time.perf_counter() - t0) * 1e3
+        if ''.join(str(c) for c in back['text']) != got:
+            raise AssertionError('config 4: load_snapshot changed the text')
+        try:
+            am.save(doc)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError('save() of a replayed (truncated) '
+                                 'document did not raise')
+        times.sort()
+        print(f'config 4 edits ({card}): {n_edits} facade changes at a '
+              f'cursor on the replayed document, each == the cpu document; '
+              f'change p50 {times[len(times) // 2]:.1f} ms, max '
+              f'{times[-1]:.1f} ms; save_snapshot {len(snap)} bytes, '
+              f'load_snapshot on the card {t_load:.1f} ms, same text; save() '
+              f'refuses the truncated log; launches {_launch_counts()}',
+              flush=True)
+
+        # the wire-to-patch line: the bulk route into the general engine
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        st, patch = bulk('cuda')
+        torch.cuda.synchronize()
+        t_bulk = (time.perf_counter() - t0) * 1e3
+        added_b = _added(_launch_counts(), before)
+    counts = _launch_counts()
+    fmt = st.store.pool.mirror['fmt']
+    t0 = time.perf_counter()
+    _, cpatch = bulk('cpu')
+    t_cbulk = (time.perf_counter() - t0) * 1e3
+    if patch != cpatch:
+        raise AssertionError('config 4 wire-to-patch: cuda patch != cpu')
+    _require_launch(added_b, 'rga_order', 'the wire-to-patch line')
+    _require_launch(added_b, 'edit_stream', 'the wire-to-patch line')
+    print(f'config 4 wire-to-patch ({card}): DeviceBackend.apply_changes of'
+          f' {n_bulk} changes into a fresh document on the card (the general '
+          f'engine, {fmt} mirror) {t_bulk:.1f} ms (the cpu run '
+          f'{t_cbulk:.1f} ms), {len(patch["diffs"])} diffs, patch == cpu; '
+          f'launches {added_b}', flush=True)
+    prof = _profiled(lambda: replay_text_block(block, device='cuda'))
+    busy, k_ms = _kernel_share(prof, 'the config-4 replay', _RGA_KERNELS)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f'profile (the config-4 replay again under torch.profiler, '
+          f'{card}): device busy {busy:.3f} ms, the RGA kernel '
+          f'{k_ms:.3f} ms = {k_ms / t_replay:.4f} of the unprofiled '
+          f'replay\'s wall time; its launch as the trace records it '
+          f'(the card has {n_sm} SMs): '
+          f'{_launch_geometry(prof, _RGA_KERNELS)}', flush=True)
+    prof = _profiled(lambda: bulk('cuda'))
+    busy, k_rga = _kernel_share(prof, 'the wire-to-patch line', _RGA_KERNELS)
+    _, k_es = _kernel_share(prof, 'the wire-to-patch line', _ES_KERNELS)
+    print(f'profile (the wire-to-patch line again under torch.profiler, '
+          f'{card}): device busy {busy:.3f} ms, the RGA kernel {k_rga:.3f} '
+          f'ms and the edit stream {k_es:.3f} ms = '
+          f'{(k_rga + k_es) / t_bulk:.4f} of the unprofiled wall time',
+          flush=True)
+    return counts
+
+
+def _facade_map_path(card, inputs):
+    """Phase 4f: the facade on map-only device documents. 8 documents
+    from ``init`` (the card, its default) each make 16 seeded set/del
+    ops over the same 32 root keys through ``change``; the first half
+    merge into one document and the second half into another, which
+    then merge both ways. They must converge, equal the host oracle
+    (``Frontend.init({'backend': Backend})``) doing the same, and launch
+    the flat-map kernel. Returns the launch counts, by key."""
+    import torch
+    import automerge_tpu_torch as am
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+
+    n_actors, n_ops, n_keys = 8, 16, 32
+
+    def run(make):
+        rng = np.random.default_rng(21)
+        docs = []
+        for a in range(n_actors):
+            doc = make(f'{a:02d}-actor')
+            for _ in range(n_ops // 4):
+                picks = [(f'k{int(rng.integers(0, n_keys))}',
+                          int(rng.integers(0, 1000)), rng.random() < 0.1)
+                         for _ in range(4)]
+
+                def cb(d, picks=picks):
+                    for key, v, delete in picks:
+                        if delete and key in d:
+                            del d[key]
+                        else:
+                            d[key] = v
+                doc = am.change(doc, cb)
+            docs.append(doc)
+        half = n_actors // 2
+        left, right = docs[0], docs[half]
+        for d in docs[1:half]:
+            left = am.merge(left, d)
+        for d in docs[half + 1:]:
+            right = am.merge(right, d)
+        return am.merge(left, right), am.merge(right, left)
+
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        t0 = time.perf_counter()
+        ab, ba = run(am.init)
+        torch.cuda.synchronize()
+        t_run = (time.perf_counter() - t0) * 1e3
+    added = _launch_counts()
+    if am.Frontend.get_backend_state(ab).device.type != 'cuda':
+        raise AssertionError('init() did not make a document on the card')
+    oab, oba = run(lambda actor: am.Frontend.init(
+        {'actorId': actor, 'backend': am.Backend}))
+    if not (doc_view(ab) == doc_view(ba) == doc_view(oab) ==
+            doc_view(oba)):
+        raise AssertionError('the facade map documents did not converge '
+                             'to the oracle')
+    _require_launch(added, 'flatmap_resolve', 'the facade map path')
+    print(f'facade ({card}): {n_actors} device documents x {n_ops} set/del '
+          f'ops over {n_keys} keys, merged both ways through the facade in '
+          f'{t_run:.1f} ms; converged, == the host oracle; launches '
+          f'{added}', flush=True)
+    return added
 
 def _card_line():
     out = subprocess.run(
@@ -1058,8 +1603,10 @@ def _delta_err(got, want, valid, where):
 def _kernel_calls(key, kind, args):
     """The calls of one captured input of launch ``key`` (kernel, mode,
     variant): ``dispatch`` (the call as the path makes it), ``kernel``
-    (the kernel alone on inputs made ready once), ``plain`` (its plain
-    version), ``err(got, want)``, ``extra`` (other variants of the
+    (the kernel alone on inputs made ready once), ``plain`` (the
+    dispatch's plain version), ``kernel_plain`` (the plain version of
+    what ``kernel`` alone computes, on the same ready inputs), ``err(got,
+    want)``, ``extra`` (other variants of the
     kernel to hold and time beside it), and the ``bytes`` one launch
     must move (each input read once, each output written once) at
     ``shape``."""
@@ -1080,6 +1627,7 @@ def _kernel_calls(key, kind, args):
         c['kernel'] = lambda: cuda_view.edit_stream_cuda(
             vis_fmt, ready, t_u8, e_pad)
         c['plain'] = lambda: _es_plain(vis_fmt, ready, t_u8, e_pad)
+        c['kernel_plain'] = c['plain']
         c['err'] = lambda got, want: _max_abs_err(got, want, str(key))
         c['bytes'] = K * m * _ES_NODE_BYTES[vis_fmt] + K * tb.shape[1] + \
             5 * K * e_pad * 4 + 12 * K
@@ -1106,6 +1654,9 @@ def _kernel_calls(key, kind, args):
                 mask, str(key))
         flags = (visible.to(torch.bool).contiguous(),
                  valid.to(torch.bool).contiguous())
+        # the narrow kernels sort inside, as their plain versions do; the
+        # wide kernel takes the PyTorch child sort's output
+        c['kernel_plain'] = c['plain']
         if key[1:] == ('order', 'narrow'):
             raw = [t.to(i32).contiguous() for t in (parent, elem, actor)]
             c['kernel'] = lambda: cuda_sequence.rga_order_cuda(
@@ -1120,6 +1671,8 @@ def _kernel_calls(key, kind, args):
                 parent, elem, actor, valid, anchor)]
             c['kernel'] = lambda: cuda_sequence.order_from_sorted_cuda(
                 *srt, *flags, rounds=rounds)
+            c['kernel_plain'] = lambda: sequence._order_from_sorted_plain(
+                *srt, *flags)
         # the delta mode reads four int32 planes and valid, and writes
         # tree_pos; the rebuild modes read three int32 planes (or the
         # sorted order, parent_adj and parent) and two bool planes, and
@@ -1137,6 +1690,7 @@ def _kernel_calls(key, kind, args):
         c['kernel'] = lambda: cuda_merge.resolve_cuda(*a, **kw)
         c['plain'] = lambda: merge.resolve_assignments_batch(
             *a, num_segments=S)
+        c['kernel_plain'] = c['plain']
         c['err'] = lambda got, want: _bits_err(got, want, str(key))
         if key[2] != 'block':
             c['extra']['block'] = lambda: cuda_merge.resolve_cuda(
@@ -1155,10 +1709,14 @@ def _kernel_row(key, n, entries, card):
     paths launched ``n`` times: every input of it they handed over,
     through the dispatch (which must launch exactly ``key``) against the
     plain version, bit for bit; then, at the largest of those inputs
-    (the later of equals), the kernel's device time (a CUDA graph of 50
-    launches, median, min and max of 5 replays), the dispatch called
-    eagerly, the plain version and the byte bound. Returns the JSON
-    row."""
+    (the later of equals), the kernel and the plain version of what it
+    computes (for the wide RGA kernel, steps 2-4 from the same child
+    sort) timed the same two ways: device time (a CUDA graph of 50 calls, 20 for the
+    plain version; median, min and max of 5 replays) and called eagerly
+    (as many calls back to back, host launches included). Both reuse one
+    input every call, so it stays in L2 where it fits (50 MB). Also the
+    dispatch called eagerly and the byte bound. ``ms`` and ``plain_ms``
+    are the graph times. Returns the JSON row."""
     import torch
     if not entries:
         raise AssertionError(f'{key} launched {n} times on the main paths '
@@ -1185,8 +1743,10 @@ def _kernel_row(key, n, entries, card):
         if big is None or c['size'] >= big['size']:
             big = c
     t_k = _time_ms(big['kernel'], graph=True)
+    t_k_eager = _time_ms(big['kernel'])
     t_eager = _time_ms(big['dispatch'])
-    t_plain = _time_ms(big['plain'], iters=20)
+    t_plain = _time_ms(big['kernel_plain'], iters=20, graph=True)
+    t_plain_eager = _time_ms(big['kernel_plain'], iters=20)
     t_extra = {v: _time_ms(f, graph=True) for v, f in big['extra'].items()}
     bound = big['bytes'] / _HBM_BYTES_PER_S * 1e3
     name = ':'.join(key)
@@ -1194,19 +1754,22 @@ def _kernel_row(key, n, entries, card):
           f'{len(entries)} of their inputs bit-equal to the plain version '
           f'through the dispatch' + ''.join(f' and the {v} variant'
                                             for v in t_extra)
-          + f'; at {big["shape"]}: {_fmt_t(t_k)} per launch on the device '
-          f'(a CUDA graph of 50 launches, median of 5 replays)'
+          + f'; at {big["shape"]}, L2 warm: {_fmt_t(t_k)} per launch on '
+          f'the device (a CUDA graph of 50 launches, median of 5 replays)'
           + ''.join(f', the {v} variant {_fmt_t(t)}'
                     for v, t in t_extra.items())
-          + f'; the dispatch called eagerly {_fmt_t(t_eager)}; plain '
-          f'PyTorch {_fmt_t(t_plain)}; bound {bound:.5f} ms '
+          + f'; plain PyTorch {_fmt_t(t_plain)} per call on the device (a '
+          f'CUDA graph of 20 calls); called eagerly: the kernel '
+          f'{_fmt_t(t_k_eager)}, the dispatch {_fmt_t(t_eager)}, plain '
+          f'PyTorch {_fmt_t(t_plain_eager)}; bound {bound:.5f} ms '
           f'({big["bytes"]} bytes at 3.35 TB/s)', flush=True)
     source, replaces = _KERNEL_FILES[key[0]]
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': n, 'max_abs_err': err,
             'ms': t_k[0], 'plain_ms': t_plain[0], 'bound_ms': bound,
             'bound_by': 'bytes', 'library_ms': None, 'mode': key[1],
-            'variant': key[2], 'shape': big['shape']}
+            'variant': key[2], 'shape': big['shape'],
+            'ms_eager': t_k_eager[0], 'plain_ms_eager': t_plain_eager[0]}
 
 
 def main():
@@ -1411,6 +1974,13 @@ def main():
     long_counts, long_applies, long_diffs = _long_text_path(card, inputs)
     _async_path(card, long_applies, long_diffs)
 
+    # ---- 4d-4f. config 5 over the wire, config 4, the facade ----
+    with tempfile.TemporaryDirectory() as workdir:
+        wire_counts = _wire_fleet_path(card, ticks, ids, cds, sub, inputs,
+                                       workdir)
+    text_counts = _text_trace_path(card, inputs)
+    facade_counts = _facade_map_path(card, inputs)
+
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
@@ -1419,7 +1989,8 @@ def main():
 
     # ---- 7. the kernels at the main paths' inputs ----
     launched = {}
-    for counts in (main_counts, long_counts['launches'], dds_counts):
+    for counts in (main_counts, long_counts['launches'], wire_counts,
+                   text_counts, facade_counts, dds_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
     kernels = [_kernel_row(key, n, inputs.get(key), card)

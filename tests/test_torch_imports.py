@@ -65,6 +65,18 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         'import automerge_tpu_torch.sync\n'
         'import automerge_tpu_torch.frontend\n'
         'import automerge_tpu_torch.native\n'
+        'import automerge_tpu_torch.wire\n'
+        'import automerge_tpu_torch.snapshot\n'
+        'import automerge_tpu_torch.durability\n'
+        'import automerge_tpu_torch.compaction\n'
+        'import automerge_tpu_torch.traces\n'
+        'import automerge_tpu_torch.interop\n'
+        'import automerge_tpu_torch.frontend.worker\n'
+        'import automerge_tpu_torch.device.clock\n'
+        'import automerge_tpu_torch.device.text_block\n'
+        'import automerge_tpu_torch.sync.watchable_doc\n'
+        'import automerge_tpu_torch.sync.connection\n'
+        'import automerge_tpu_torch.sync.resilient\n'
         'new = set(sys.modules) - before\n'
         'print(sorted(m for m in new if m == "jax" or '
         'm.startswith("jax.") or m == "automerge_tpu" or '
@@ -116,21 +128,30 @@ def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
 
 
 def test_unported_paths_raise_not_implemented():
-    from automerge_tpu_torch import GeneralDocSet
+    """Only the mesh hooks are left unported on these paths: the wire
+    apply, the state bootstrap and eviction (ported with the wire,
+    compaction and sync stack) work on a CPU doc set."""
+    from automerge_tpu_torch import GeneralDocSet, compaction
     from automerge_tpu_torch.config import Options
     from automerge_tpu_torch.device import general
+    import json
     ds = GeneralDocSet(2, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ds.apply_wire(b'[]')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ds.apply_states({'d': b''})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ds.extract_doc_state(['d'])
+    change = {'actor': 'a', 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'set', 'obj': '00000000-0000-0000-0000-000000000000',
+         'key': 'k', 'value': 1}]}
+    assert ds.apply_wire(json.dumps([[change]]).encode(),
+                         doc_ids=['d']) == [ds.get_doc('d')]
+    state = compaction.extract_doc_states(ds.store, [ds.id_of['d']])
+    assert ds.extract_doc_state(['d'])['d']['clock'] == {'a': 1}
+    ds.drop_doc_state(['d'])
+    assert ds.materialize('d') == {}
+    ds.apply_states({'d': state[ds.id_of['d']]['state']})
+    assert ds.materialize('d') == {'k': 1}
     # the async apply is ported: it resolves to a patch
     fut = general.apply_general_block_async(ds.store, ds.store.encode_changes(
-        [[{'actor': 'a', 'seq': 1, 'deps': {}, 'ops': [
+        [[{'actor': 'b', 'seq': 1, 'deps': {}, 'ops': [
             {'action': 'set', 'obj': '00000000-0000-0000-0000-000000000000',
-             'key': 'k', 'value': 1}]}], []]))
+             'key': 'k', 'value': 2}]}], []]))
     assert fut.diffs(0)
     general.close_general(ds.store)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
