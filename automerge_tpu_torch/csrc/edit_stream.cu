@@ -1,5 +1,5 @@
 // Edit-stream kernel: winner/visibility diff -> pre-ordered, delta-sized
-// edit buffers for every dirty sequence object, in two variants.
+// edit buffers for every dirty sequence object, in three variants.
 //
 // Replaces the TPU kernel in automerge_tpu/device/pallas_view.py:145-258
 // (_make_edit_kernel, _edit_stream_pallas_core, edit_stream_pallas).
@@ -49,6 +49,15 @@
 // bitmasks live in a global scratch of K * 6 * ceil(m/32) words that the
 // caller allocates.
 //
+// Grid variant (es_grid_kernel, a few wide rows: a long text's one row
+// would leave all SMs but one idle under the block variant): the same
+// bitmasks in a global scratch, the rows spread over every resident CTA
+// in four phases of ONE cooperative launch with grid barriers between
+// them (csrc/grid.cuh): clear; decode once (class and key kept in
+// registers), mark and count; the popcount prefix over chunks of words;
+// emit at the ranks and fill. Three barriers and one pass over the
+// input set its time.
+//
 // Bound on the H100: per call it must read K*m*4 + K*ceil(m/8) bytes
 // (packed) and write 5*K*e_pad*4 + 12*K bytes, with O(K*m) integer work:
 // memory- and latency-bound, far below any arithmetic limit. The warp
@@ -62,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_scan.cuh>
 
+#include "grid.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -133,16 +143,25 @@ __device__ __forceinline__ void mark(uint32_t* pm, int nw, int c, int key,
   atomicOr(pm + 2 * (c * nw + (kc >> 5)), 1u << (kc & 31));
 }
 
-// write a classified node's values at its rank (dropped at e_pad and up)
+// no rank offset: the warp and block variants' prefix covers the row
+struct NoOffset {
+  __device__ __forceinline__ int operator()(int) const { return 0; }
+};
+
+// write a classified node's values at its rank (dropped at e_pad and up);
+// off(w) adds the set bits before the chunk of word w, where the prefix
+// restarts at each chunk (the grid variant)
+template <typename Off = NoOffset>
 __device__ __forceinline__ void emit(const uint32_t* pm, int nw, int c,
                                      int key, int l, int m, int e_pad,
                                      size_t eoff, int32_t* rm_idx,
                                      int32_t* ins_node, int32_t* ins_idx,
-                                     int32_t* set_node, int32_t* set_idx) {
+                                     int32_t* set_node, int32_t* set_idx,
+                                     Off off = Off()) {
   const int kc = clamp_key(key, m);
-  const uint2 e =
-      *reinterpret_cast<const uint2*>(pm + 2 * (c * nw + (kc >> 5)));
-  const int r = static_cast<int>(e.y) +
+  const int w = kc >> 5;
+  const uint2 e = *reinterpret_cast<const uint2*>(pm + 2 * (c * nw + w));
+  const int r = static_cast<int>(e.y) + off(w) +
                 __popc(e.x & ((1u << (kc & 31)) - 1u));
   if (r >= e_pad) return;
   if (c == 0) {
@@ -371,6 +390,143 @@ es_block_kernel(int fmt, const int32_t* __restrict__ vis,
   if (tid < 3) cnt[static_cast<size_t>(k) * 3 + tid] = s_count[tid];
 }
 
+// ---- grid variant: one row over every SM ---------------------------------
+
+// The three steps as grid-wide phases of ONE cooperative launch
+// (csrc/grid.cuh) over all K rows, on the block variant's bitmasks in a
+// global scratch (the (mask, prefix) word pairs of K*3 row-classes) and
+// a chunk table:
+//
+//   phase 0: clear the masks and the counts
+//   phase 1: each thread decodes its nodes once, keeps class and key in
+//            registers (C block steps; C = 0 decodes again in phase 3),
+//            sets the presence bit (atomicOr) and counts its classes
+//            (per warp, then per CTA, into cnt)
+//   phase 2: each CTA scans the popcounts over its chunks of words of a
+//            row-class; the words keep the in-chunk prefix, each
+//            chunk's total goes to chunk_sums
+//   phase 3: each CTA scans the chunk totals into shared memory; a
+//            member's rank is its word's prefix + its chunk's offset in
+//            the row-class + the popcount below its bit, written below
+//            e_pad; the -1 fill starts at each class's set-bit count
+template <int C>
+__global__ void __launch_bounds__(kGridBlock)
+es_grid_kernel(int fmt, const int32_t* __restrict__ vis,
+               const uint8_t* __restrict__ pvp,
+               const uint8_t* __restrict__ nvp,
+               const int32_t* __restrict__ pip,
+               const int32_t* __restrict__ nip,
+               const uint8_t* __restrict__ touched,
+               int32_t* __restrict__ rm_idx, int32_t* __restrict__ ins_node,
+               int32_t* __restrict__ ins_idx,
+               int32_t* __restrict__ set_node,
+               int32_t* __restrict__ set_idx, int32_t* cnt, uint32_t* pm,
+               int32_t* chunk_sums, int K, int m, int mb, int e_pad,
+               GridShape gs) {
+  using BlockScan = cub::BlockScan<int, kGridBlock>;
+  __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ int win[kGridRowWin * 3];
+  extern __shared__ int32_t cs[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  const int nw = n_words(m);
+  const int total = K * m;
+  const int tid = threadIdx.x;
+  const int lo = blockIdx.x * gs.span;
+  const int hi = min(lo + gs.span, total);
+  const int steps = (hi - lo + kGridBlock - 1) / kGridBlock;
+  const int stride = gridDim.x * kGridBlock;
+  constexpr int CR = C > 0 ? C : 1;
+  int rcls[CR], rkey[CR];     // own nodes' class and key
+  auto each = [&](auto&& body) { grid_each<C>(lo, steps, body); };
+
+  // ---- phase 0 ----
+  const size_t words = static_cast<size_t>(K) * 3 * nw;
+  for (size_t w = blockIdx.x * kGridBlock + tid; w < words; w += stride) {
+    pm[2 * w] = 0;
+  }
+  for (int x = blockIdx.x * kGridBlock + tid; x < 3 * K; x += stride) {
+    cnt[x] = 0;
+  }
+  row_win_clear<3>(win);
+  grid.sync();
+
+  // ---- phase 1: classify, mark, count ----
+  const int k_lo = lo / m;
+  each([&](int j, int g) {
+    int k = -1;
+    int c = kNone, key = 0;
+    if (g < hi) {
+      k = g / m;
+      c = classify(fmt, vis, pvp, nvp, pip, nip,
+                   touched + static_cast<size_t>(k) * mb,
+                   static_cast<size_t>(k) * m, g - k * m, &key);
+      if (c != kNone) {
+        mark(pm + static_cast<size_t>(k) * row_words(m), nw, c, key, m);
+      }
+    }
+    rcls[j] = c;
+    rkey[j] = key;
+    const int v[3] = {c == 0, c == 1, c == 2};
+    warp_row_add<3>(win, k_lo, cnt, k, v);
+  });
+  __syncthreads();
+  row_win_flush<3>(win, k_lo, K, cnt);
+  grid.sync();
+
+  // ---- phase 2: popcount prefix over each chunk of a row-class ----
+  for (int q = blockIdx.x; q < gs.chunks; q += gridDim.x) {
+    const int rc = q / gs.per;
+    const int wlo = (q - rc * gs.per) * gs.clen;
+    const int whi = min(wlo + gs.clen, nw);
+    uint32_t* base = pm + 2 * static_cast<size_t>(rc) * nw;
+    int carry = 0;
+    for (int b = wlo; b < whi; b += kGridBlock) {
+      const int w = b + tid;
+      const int x = w < whi ? __popc(base[2 * w]) : 0;
+      int y, tot;
+      BlockScan(scan_tmp).ExclusiveSum(x, y, tot);
+      if (w < whi) base[2 * w + 1] = carry + y;
+      carry += tot;
+      __syncthreads();
+    }
+    if (tid == 0) chunk_sums[q] = carry;
+  }
+  grid.sync();
+
+  // ---- phase 3: emit at the ranks, then the -1 fill ----
+  scan_chunks<BlockScan>(chunk_sums, gs.chunks, cs, scan_tmp);
+  each([&](int j, int g) {
+    if (g >= hi) return;
+    const int k = g / m;
+    const int l = g - k * m;
+    int c = rcls[j], key = rkey[j];
+    if (C == 0) {
+      c = classify(fmt, vis, pvp, nvp, pip, nip,
+                   touched + static_cast<size_t>(k) * mb,
+                   static_cast<size_t>(k) * m, l, &key);
+    }
+    if (c == kNone) return;
+    const int row = (k * 3 + c) * gs.per;
+    emit(pm + static_cast<size_t>(k) * row_words(m), nw, c, key, l, m, e_pad,
+         static_cast<size_t>(k) * e_pad, rm_idx, ins_node, ins_idx, set_node,
+         set_idx, [&](int w) { return cs[row + w / gs.clen] - cs[row]; });
+  });
+  const long long slots = static_cast<long long>(K) * e_pad;
+  for (long long x = blockIdx.x * kGridBlock + tid; x < slots; x += stride) {
+    const int k = static_cast<int>(x / e_pad);
+    const int e = static_cast<int>(x - static_cast<long long>(k) * e_pad);
+    int bits[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int row = (k * 3 + c) * gs.per;
+      bits[c] = cs[row + gs.per] - cs[row];
+    }
+    fill(e, e_pad, bits, static_cast<size_t>(k) * e_pad, rm_idx, ins_node,
+         ins_idx, set_node, set_idx);
+  }
+}
+
 struct Args {
   int fmt;
   const int32_t* vis;
@@ -421,6 +577,37 @@ int launch_block(const Args& a, uint32_t* scratch) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C>
+int launch_grid_c(const Args& a, uint32_t* scratch, const GridShape& gs,
+                  size_t smem) {
+  return static_cast<int>(grid_launch(
+      es_grid_kernel<C>, gs, smem, a.stream, a.fmt, a.vis, a.pv, a.nv, a.pi,
+      a.ni, a.touched, a.rm_idx, a.ins_node, a.ins_idx, a.set_node,
+      a.set_idx, a.cnt, scratch,
+      reinterpret_cast<int32_t*>(scratch + a.K * row_words(a.m)), a.K, a.m,
+      a.mb, a.e_pad, gs));
+}
+
+// The grid variant's launch: the grid from the card's residency, then
+// the kernel that keeps gs.regs nodes a thread in registers (up to 4;
+// past that it decodes them again).
+int launch_grid(const Args& a, uint32_t* scratch) {
+  if (scratch == nullptr || a.K > kGridMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (grid_chunk_words(3 * a.K) + 1) * sizeof(int32_t);
+  GridShape gs;
+  const cudaError_t e = grid_shape(
+      smem, static_cast<long long>(a.K) * a.m, 3 * a.K, n_words(a.m), &gs,
+      es_grid_kernel<0>, es_grid_kernel<1>, es_grid_kernel<2>,
+      es_grid_kernel<4>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (gs.regs <= 1) return launch_grid_c<1>(a, scratch, gs, smem);
+  if (gs.regs <= 2) return launch_grid_c<2>(a, scratch, gs, smem);
+  if (gs.regs <= 4) return launch_grid_c<4>(a, scratch, gs, smem);
+  return launch_grid_c<0>(a, scratch, gs, smem);
+}
+
 }  // namespace
 
 // Whether the block variant at width m keeps its bitmasks in shared
@@ -430,14 +617,21 @@ extern "C" int edit_stream_block_uses_smem(int m) {
   return row_words(m) * 4 <= static_cast<size_t>(kSmemLimit);
 }
 
+// Words of the grid variant's scratch at (K, m): the bitmasks of
+// K * 6 * ceil(m/32) uint32 and the chunk table.
+extern "C" long long edit_stream_grid_scratch_words(int K, int m) {
+  return static_cast<long long>(K) * row_words(m) + grid_chunk_words(3 * K);
+}
+
 // C entry point (bound with ctypes). variant 0: one warp per row; 1: one
-// block per row. fmt 0: `vis` is the packed int32 [K, m] word plane;
+// block per row; 2: one cooperative launch over the whole card. fmt 0: `vis` is the packed int32 [K, m] word plane;
 // fmt 1: pv/nv are uint8 (bool) and pi/ni int32 [K, m] planes; fmt 2 (the
 // wide format): `vis` is the int32 [K, m] prior word plane and `ni` the
 // new word plane (pv, nv and pi are unused). touched is
 // uint8 [K, mb] (mb = ceil(m / 8)). Outputs are int32 [K, e_pad] x 5 and
-// [K, 3]; scratch is null unless the block variant needs it. Returns the
-// CUDA error of the launch (0 on success).
+// [K, 3]; scratch is null unless the block variant needs it, and holds
+// edit_stream_grid_scratch_words(K, m) words for the grid variant.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int edit_stream_launch(int variant, int fmt, const void* vis,
                                   const void* pv, const void* nv,
                                   const void* pi, const void* ni,
@@ -466,6 +660,7 @@ extern "C" int edit_stream_launch(int variant, int fmt, const void* vis,
                e_pad,
                static_cast<cudaStream_t>(stream)};
   if (variant == 1) return launch_block(a, static_cast<uint32_t*>(scratch));
+  if (variant == 2) return launch_grid(a, static_cast<uint32_t*>(scratch));
   if (m <= 32) return launch_warp<1>(a);
   if (m <= 64) return launch_warp<2>(a);
   if (m <= 128) return launch_warp<4>(a);

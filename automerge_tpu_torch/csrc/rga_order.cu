@@ -1,11 +1,11 @@
-// RGA document order of every dirty sequence object, in two variants.
+// RGA document order of every dirty sequence object, in three variants.
 //
 // Replaces the TPU kernel in automerge_tpu/device/pallas_sequence.py:63-208
 // (_make_kernel, _rga_pallas_padded, rga_order_batch_pallas). That kernel
 // sends every gather and scatter through one-hot MXU matmuls over [m, m]
 // tiles (O(m^2) per round) because the TPU has no fast gather, and leaves
 // the child sort to XLA. On Hopper a gather is a plain indexed load, so
-// both variants compute the plain version (sequence._rga_order_plain:
+// every variant computes the plain version (sequence._rga_order_plain:
 // sequence._child_sort, then sequence._order_from_sorted_plain) directly,
 // with the same round count and the same sentinel slots:
 //
@@ -80,6 +80,19 @@
 // An O(m^2) rank count would be pathological at those widths (a 12,799-
 // node list built by prepending needs 164M compares in one block), so the
 // wide variant keeps the O(m log m) sort outside.
+//
+// Grid variant (rga_grid_kernel, after the same sort): a batch of one or
+// a few long rows (a long text, a replayed editing trace) would run the
+// wide variant on one block per row, so on a few of the card's 132 SMs,
+// each block walking its row through 2*rounds dependent sweeps. This
+// variant spreads the K*(m+1) slots over every resident CTA and runs
+// steps 1-4 as grid-wide phases of ONE cooperative launch, a grid barrier
+// between phases (csrc/grid.cuh): 2*rounds + 4 phases, the climb's last
+// round fused with the successor and the ranking's last round with
+// tree_pos and the node_at_pos scatter. Its time is set by the barriers
+// (about 1.1-1.7 us each on an H100, more with more CTAs) and each
+// round's one dependent L2 load, not by bytes: the planes (5 * 4 bytes a
+// slot) stay in the 50 MB L2.
 
 #include <cstddef>
 #include <algorithm>
@@ -89,6 +102,7 @@
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "grid.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -780,6 +794,283 @@ int narrow_dispatch(const void* parent, const void* elem, const void* actor,
   return args(launch_narrow<16>);
 }
 
+
+// ---- grid variant: one row over every SM --------------------------------
+
+// Steps 1-4 over all K rows at once, each a grid-wide phase of ONE
+// cooperative launch (csrc/grid.cuh), on five planes of K*(m+1) words
+// in a global scratch: FC and NS (first child, next sibling; later the
+// distance pair), two climb planes (later the successor pair) and NAP
+// (node_at_pos). A thread owns the slots of its CTA's span and keeps
+// each one's climb pointer, successor and distance in registers across
+// the barriers (C block steps; C = 0 reloads them from the planes), so a
+// doubling round costs one barrier and one dependent load per slot.
+//
+//   phase 0: FC = -1, NAP = n - 1, length = 0
+//   phase 1: threading over sorted slots; the thread of sorted slot s
+//            also writes the climb start of node order[s] (its next
+//            sibling is its own to decide)
+//   climb:   `rounds` rounds c = c[c]; the last one also resolves the
+//            successor (slot n the terminator) into the free climb plane
+//   rank:    `rounds` rounds dist += dist[nxt], nxt = nxt[nxt] (round
+//            0's dist is 1 below n and 0 at n, never stored); the last
+//            one also writes tree_pos (every thread reads its row's head
+//            distance from the previous round) and scatters NAP
+//   scan:    each CTA scans the visibility of its chunks of positions
+//            (node_at_pos out), each chunk's total to chunk_sums
+//   index:   each CTA scans the chunk totals into shared memory; a shown
+//            node's vis_index is its chunk's row prefix + the local rank,
+//            and the lengths are the shown nodes counted per row
+//
+// Position 0 always holds node 0: the head's tree_pos is 0, so it is off
+// the chain and the plain version's "any node off the chain" holds on
+// every row.
+template <int C>
+__global__ void __launch_bounds__(kGridBlock)
+rga_grid_kernel(const int32_t* __restrict__ order,
+                const int32_t* __restrict__ parent_adj,
+                const int32_t* __restrict__ parent,
+                const uint8_t* __restrict__ visible,
+                const uint8_t* __restrict__ valid,
+                int32_t* __restrict__ tree_pos,
+                int32_t* __restrict__ vis_index,
+                int32_t* __restrict__ node_at_pos, int32_t* length,
+                int32_t* planes, int32_t* chunk_sums, int K, int m,
+                int rounds, GridShape gs) {
+  using BlockScan = cub::BlockScan<int, kGridBlock>;
+  __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ int win[kGridRowWin];
+  extern __shared__ int32_t cs[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  const int n = m;
+  const int W = n + 1;
+  const int total = K * W;
+  const int tid = threadIdx.x;
+  const int lo = blockIdx.x * gs.span;
+  const int hi = min(lo + gs.span, total);
+  const int steps = (hi - lo + kGridBlock - 1) / kGridBlock;
+  int32_t* const D[2] = {planes, planes + total};          // FC, NS first
+  int32_t* const CL[2] = {planes + 2 * total, planes + 3 * total};
+  int32_t* const NAP = planes + 4 * total;
+  constexpr int CR = C > 0 ? C : 1;
+  int rx[CR], rd[CR];         // own slots' climb/successor and distance
+  auto each = [&](auto&& body) { grid_each<C>(lo, steps, body); };
+
+  // ---- phase 0 ----
+  each([&](int, int g) {
+    if (g < hi && g % W < n) {
+      D[0][g] = -1;
+      NAP[g] = n - 1;
+    }
+  });
+  for (int k = blockIdx.x * kGridBlock + tid; k < K;
+       k += gridDim.x * kGridBlock) {
+    length[k] = 0;
+  }
+  grid.sync();
+
+  // ---- phase 1: threading (slot g of row k = sorted position i) ----
+  each([&](int, int g) {
+    if (g >= hi) return;
+    const int k = g / W;
+    const int i = g - k * W;
+    if (i >= n) return;
+    const size_t off = static_cast<size_t>(k) * n;
+    const int32_t* ord = order + off;
+    const int32_t* padj = parent_adj + off;
+    const int o = ord[i];
+    const int p = padj[o];
+    const int base = k * W;
+    if ((i == 0 || padj[ord[i - 1]] != p) && p >= 0 && p < n) {
+      D[0][base + p] = o;
+    }
+    int nx = -1;
+    if (i + 1 < n && o != 0) {  // head and padding share a sort bucket
+      const int o2 = ord[i + 1];
+      if (padj[o2] == p) nx = o2;
+    }
+    D[1][base + o] = nx;
+    CL[0][base + o] = (nx >= 0 || o == 0)
+                          ? o : min(max(parent[off + o], 0), n - 1);
+  });
+  grid.sync();
+
+  // ---- climb: c = c[c]; the last round resolves the successor ----
+  for (int r = 0; r < rounds; ++r) {
+    const int32_t* cur = CL[r & 1];
+    int32_t* nxt = CL[(r + 1) & 1];
+    const bool last = r + 1 == rounds;
+    each([&](int j, int g) {
+      if (g >= hi) return;
+      const int k = g / W;
+      const int i = g - k * W;
+      if (i == n) {
+        if (last) {
+          nxt[g] = n;
+          rx[j] = n;
+        }
+        return;
+      }
+      const int base = k * W;
+      const int c = (C > 0 && r > 0) ? rx[j] : cur[g];
+      const int c2 = cur[base + c];
+      if (!last) {
+        nxt[g] = c2;
+        rx[j] = c2;
+        return;
+      }
+      const int fc = D[0][g];
+      int succ = fc >= 0 ? fc : D[1][base + c2];
+      if (!valid[static_cast<size_t>(k) * n + i]) succ = -1;
+      const int x = succ >= 0 ? succ : n;
+      nxt[g] = x;
+      rx[j] = x;
+    });
+    grid.sync();
+  }
+
+  // ---- rank: dist += dist[nxt], nxt = nxt[nxt]; last: tree_pos ----
+  for (int r = 0; r < rounds; ++r) {
+    const int32_t* xc = CL[(rounds + r) & 1];
+    int32_t* xn = CL[(rounds + r + 1) & 1];
+    const int32_t* dc = D[(r + 1) & 1];      // dist of round r (r >= 1)
+    int32_t* dn = D[r & 1];
+    const bool last = r + 1 == rounds;
+    each([&](int j, int g) {
+      if (g >= hi) return;
+      const int k = g / W;
+      const int i = g - k * W;
+      const int base = k * W;
+      const int x = C > 0 ? rx[j] : xc[g];
+      const int d = r == 0 ? (i < n) : (C > 0 ? rd[j] : dc[g]);
+      const int dx = r == 0 ? (x < n) : dc[base + x];
+      if (!last) {
+        const int xx = xc[base + x];
+        dn[g] = d + dx;
+        xn[g] = xx;
+        rx[j] = xx;
+        rd[j] = d + dx;
+        return;
+      }
+      if (i == n) return;
+      const int x0 = xc[base];
+      const int d0 = r == 0 ? 1 + (x0 < n) : dc[base] + dc[base + x0];
+      const int t = d0 - (d + dx);
+      const size_t off = static_cast<size_t>(k) * n;
+      tree_pos[off + i] = t;
+      dn[g] = t;
+      rd[j] = t;
+      if (valid[off + i] && t > 0 && t <= n) NAP[base + t] = i;
+    });
+    grid.sync();
+  }
+  const int32_t* TP = D[(rounds + 1) & 1];   // written by the last round
+  int32_t* VR = D[rounds & 1];
+
+  // ---- scan: visibility over each chunk of positions ----
+  for (int q = blockIdx.x; q < gs.chunks; q += gridDim.x) {
+    const int k = q / gs.per;
+    const int plo = (q - k * gs.per) * gs.clen;
+    const int phi = min(plo + gs.clen, n);
+    const int base = k * W;
+    const size_t off = static_cast<size_t>(k) * n;
+    int carry = 0;
+    for (int b = plo; b < phi; b += kGridBlock) {
+      const int p = b + tid;
+      int x = 0;
+      if (p < phi) {
+        const int j = p == 0 ? 0 : NAP[base + p];
+        node_at_pos[off + p] = j;
+        x = valid[off + j] && TP[base + j] > 0 && visible[off + j];
+      }
+      int y, tot;
+      BlockScan(scan_tmp).ExclusiveSum(x, y, tot);
+      if (p < phi) VR[base + p] = carry + y;
+      carry += tot;
+      __syncthreads();
+    }
+    if (tid == 0) chunk_sums[q] = carry;
+  }
+  grid.sync();
+
+  // ---- index: vis_index and the lengths ----
+  scan_chunks<BlockScan>(chunk_sums, gs.chunks, cs, scan_tmp);
+  row_win_clear<1>(win);
+  __syncthreads();
+  const int k_lo = lo / W;
+  each([&](int j, int g) {
+    int k = -1;
+    int shown[1] = {0};
+    const int kk = g / W;
+    const int i = g - kk * W;
+    if (g < hi && i < n) {
+      k = kk;
+      const size_t off = static_cast<size_t>(k) * n;
+      const int t = C > 0 ? rd[j] : TP[g];
+      shown[0] = visible[off + i] && valid[off + i] && t > 0;
+      int v = -1;
+      if (shown[0]) {
+        const int tc = min(max(t, 0), n - 1);
+        const int row = k * gs.per;
+        v = VR[k * W + tc] + cs[row + tc / gs.clen] - cs[row];
+      }
+      vis_index[off + i] = v;
+    }
+    warp_row_add<1>(win, k_lo, length, k, shown);
+  });
+  __syncthreads();
+  row_win_flush<1>(win, k_lo, K, length);
+}
+
+template <int C>
+int launch_grid_c(const int32_t* order, const int32_t* parent_adj,
+                  const int32_t* parent, const uint8_t* visible,
+                  const uint8_t* valid, int32_t* tree_pos,
+                  int32_t* vis_index, int32_t* node_at_pos, int32_t* length,
+                  int32_t* scratch, int K, int m, int rounds,
+                  const GridShape& gs, size_t smem, cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(K) * plane_words(m);
+  return static_cast<int>(grid_launch(
+      rga_grid_kernel<C>, gs, smem, stream, order, parent_adj, parent,
+      visible, valid, tree_pos, vis_index, node_at_pos, length, scratch,
+      scratch + 5 * total, K, m, rounds, gs));
+}
+
+// The grid variant's launch: the grid from the card's residency, then
+// the kernel that keeps gs.regs slots a thread in registers (up to 4;
+// past that it reloads them).
+int launch_grid(const int32_t* order, const int32_t* parent_adj,
+                const int32_t* parent, const uint8_t* visible,
+                const uint8_t* valid, int32_t* tree_pos, int32_t* vis_index,
+                int32_t* node_at_pos, int32_t* length, int32_t* scratch,
+                int K, int m, int rounds, cudaStream_t stream) {
+  const size_t smem = (grid_chunk_words(K) + 1) * sizeof(int32_t);
+  GridShape gs;
+  const cudaError_t e = grid_shape(
+      smem, static_cast<long long>(K) * plane_words(m), K, m, &gs,
+      rga_grid_kernel<0>, rga_grid_kernel<1>, rga_grid_kernel<2>,
+      rga_grid_kernel<4>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto go = [&](auto launcher) {
+    return launcher(order, parent_adj, parent, visible, valid, tree_pos,
+                    vis_index, node_at_pos, length, scratch, K, m, rounds,
+                    gs, smem, stream);
+  };
+  if (gs.regs <= 1) return go(launch_grid_c<1>);
+  if (gs.regs <= 2) return go(launch_grid_c<2>);
+  if (gs.regs <= 4) return go(launch_grid_c<4>);
+  return go(launch_grid_c<0>);
+}
+
+// An empty kernel of the grid variants' shape: `syncs` grid barriers and
+// nothing else (the floor under each round of a cooperative launch), or
+// with syncs = 0 an empty launch (the floor of one launch per round).
+__global__ void __launch_bounds__(kGridBlock) grid_barrier_kernel(int syncs) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int s = 0; s < syncs; ++s) grid.sync();
+}
+
 }  // namespace
 
 // Whether a launch at width m keeps its planes in shared memory; when it
@@ -817,6 +1108,68 @@ extern "C" int rga_order_launch(const void* order, const void* parent_adj,
   if (m <= 256) return args(launch<256>);
   if (m <= 4096) return args(launch<512>);
   return args(launch<1024>);
+}
+
+// Words of the grid variant's scratch at (K, m): five planes of K*(m+1)
+// and the chunk table.
+extern "C" long long rga_grid_scratch_words(int K, int m) {
+  return 5LL * K * static_cast<long long>(plane_words(m)) +
+         grid_chunk_words(K);
+}
+
+// C entry point of the grid variant (bound with ctypes): the arguments
+// of rga_order_launch, with a scratch of rga_grid_scratch_words(K, m)
+// int32. One cooperative launch over every resident CTA; returns the
+// CUDA error of the launch (0 on success; a card or stream that refuses
+// a cooperative launch returns its error, never another variant).
+extern "C" int rga_grid_launch(const void* order, const void* parent_adj,
+                               const void* parent, const void* visible,
+                               const void* valid, void* tree_pos,
+                               void* vis_index, void* node_at_pos,
+                               void* length, void* scratch, int K, int m,
+                               int rounds, void* stream) {
+  if (K <= 0) return 0;
+  if (m < 1 || rounds < 1 || scratch == nullptr || K > kGridMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_grid(static_cast<const int32_t*>(order),
+                     static_cast<const int32_t*>(parent_adj),
+                     static_cast<const int32_t*>(parent),
+                     static_cast<const uint8_t*>(visible),
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<int32_t*>(tree_pos),
+                     static_cast<int32_t*>(vis_index),
+                     static_cast<int32_t*>(node_at_pos),
+                     static_cast<int32_t*>(length),
+                     static_cast<int32_t*>(scratch), K, m, rounds,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The grid variants' limits (csrc/grid.cuh): the most rows and the most
+// slots one launch takes, which device/cuda_grid.py mirrors.
+extern "C" long long grid_max_rows() { return kGridMaxRows; }
+extern "C" long long grid_max_slots() { return kGridMaxSlots; }
+
+// The floor under the grid variants' rounds (tools/torch_kernel_ab.py):
+// one launch of an empty kernel on `ctas` CTAs of kGridBlock threads (0
+// or more than the card holds resident: all resident), cooperative with
+// `syncs` grid barriers when coop != 0, else a plain launch with none.
+// Returns the launch's CUDA error.
+extern "C" int grid_barrier_probe(int syncs, int coop, int ctas,
+                                  void* stream) {
+  GridShape gs;
+  const cudaError_t e =
+      grid_shape(0, static_cast<long long>(kGridMaxCtas) * kGridBlock, 1, 1,
+                 &gs, grid_barrier_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (ctas > 0 && ctas < gs.ctas) gs.ctas = ctas;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (coop) {
+    return static_cast<int>(grid_launch(grid_barrier_kernel, gs, 0, st,
+                                        syncs));
+  }
+  grid_barrier_kernel<<<gs.ctas, kGridBlock, 0, st>>>(0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // C entry point of the narrow variant (bound with ctypes): the raw planes

@@ -22,6 +22,10 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # every kernel source of the port (csrc/<name>.cu)
 KERNELS = ('edit_stream', 'rga_order', 'flatmap_resolve')
+# the most dynamic shared memory a launch of any of them takes
+# (kSmemLimit in each csrc/<name>.cu); past it a kernel works in global
+# memory
+SMEM_LIMIT = 200 * 1024
 
 _libs = {}
 _lock = threading.Lock()
@@ -91,16 +95,16 @@ def build_all(names=KERNELS, force=False):
     return secs
 
 
-def load(name, entry, argtypes):
+def load(name, entry, argtypes, restype=ctypes.c_int):
     """The ctypes function ``entry`` of kernel ``name`` (built on first
     use), with its argument types set and an int return (the CUDA error
-    code of the launch)."""
+    code of a launch), or ``restype``."""
     with _lock:
         fn = _libs.get((name, entry))
         if fn is None:
             fn = getattr(ctypes.CDLL(build(name)), entry)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _libs[(name, entry)] = fn
     return fn
 

@@ -50,8 +50,6 @@ _I32 = torch.int32
 # (the crossovers at the callers' padding buckets, measured on an H100:
 # PERF.md)
 N_WARP_SCALAR = 512
-# the shared memory a CTA of either variant may use
-_SMEM_LIMIT = 200 * 1024
 
 # launches of the CUDA kernel since the last reset by (mode, variant):
 # mode 'resolve' (the kernel's one mode), variant as :func:`variant`
@@ -96,13 +94,13 @@ def variant(N, S, A, force=None):
     warp whose slice cannot fit a CTA raises."""
     if force not in (None, 'warp', 'block'):
         raise ValueError(f'unknown flat-map variant {force!r}')
-    fits = warp_slice_bytes(N, S, A) <= _SMEM_LIMIT
+    fits = warp_slice_bytes(N, S, A) <= cuda_build.SMEM_LIMIT
     v = force or ('warp' if fits and (A % 4 == 0 or N <= N_WARP_SCALAR)
                   else 'block')
     if v == 'warp' and not fits:
         raise ValueError(f'the warp variant cannot hold N={N} S={S} A={A} '
                          f'({warp_slice_bytes(N, S, A)} bytes a warp)')
-    if v == 'block' and (S + 1) * (A + 2) * 4 > _SMEM_LIMIT:
+    if v == 'block' and (S + 1) * (A + 2) * 4 > cuda_build.SMEM_LIMIT:
         v = 'block-global'
     return v
 

@@ -6,9 +6,9 @@ replace ``_make_kernel`` / ``_rga_pallas_padded`` /
 ``rga_order_batch_pallas`` (``pallas_sequence.py`` :63-208), whose
 one-hot MXU matmuls existed only because the TPU lacks a fast gather,
 and unlike the TPU kernel also emit ``tree_pos`` and ``node_at_pos``,
-which the general engine's rebuild writes back. Both are built with
+which the general engine's rebuild writes back. They are built with
 nvcc for ``sm_90a`` on first use into ``_build/`` and bound with
-ctypes; :func:`variant` says which one a width takes:
+ctypes; :func:`variant` says which one a shape takes:
 
 * :func:`rga_order_cuda` — the narrow variant, for rows up to
   :data:`M_NARROW` nodes: one warp per job row, several rows to a CTA,
@@ -17,9 +17,15 @@ ctypes; :func:`variant` says which one a width takes:
   the threading, the ancestor climb, the list ranking and the
   visibility scan, all in the warp's slice of shared memory. Its plain
   version is ``sequence._rga_order_plain``.
-* :func:`order_from_sorted_cuda` — the wide variant, for wider rows:
-  one thread block per job row, from the permutation of a PyTorch
-  stable child sort (``sequence._child_sort``). Its plain version is
+* :func:`order_from_sorted_cuda` — from the permutation of a PyTorch
+  stable child sort (``sequence._child_sort``), for wider rows, in two
+  variants. ``'wide'``: one thread block per job row, its planes in
+  shared memory (or ``'wide-global'``, a global scratch, past the
+  shared-memory cap) — for batches of rows that fill the card.
+  ``'wide-grid'``: one cooperative launch that spreads the rows over
+  every SM, its phases separated by grid barriers — for the few long
+  rows (a long text, a replayed editing trace) that would leave all but
+  a few SMs idle with one block each. Its plain version is
   ``sequence._order_from_sorted_plain``.
 * :func:`rga_delta_cuda` — the delta mode of the narrow variant, behind
   the incremental index update: the same kernel over one tick's delta
@@ -38,7 +44,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, cuda_grid
 
 _I32 = torch.int32
 
@@ -47,17 +53,28 @@ _I32 = torch.int32
 # own limit of 512 nodes (a lane's 16 register slots; PERF.md)
 M_NARROW = 512
 
+# wider rows take the grid variant while there are at most this many of
+# them at a width up to the band's bound, else one block per row: the
+# crossover table measured on an H100 (tools/torch_kernel_ab.py
+# --single-row, PERF.md) — up to 8,192 nodes one block per row wins at
+# every row count, at 10,240 the grid wins through 2 rows, up to the
+# shared-memory cap through 8, past it through 32 (at 132 rows the block
+# per row wins again)
+GRID_BANDS = ((8192, 0), (10240, 2), (12799, 8), (None, 32))
+
 # launches of the CUDA kernels since the last reset by (mode, variant):
 # mode 'order' (rga_order_cuda, order_from_sorted_cuda) or 'delta'
 # (rga_delta_cuda), variant as :func:`variant` names it; counted where a
 # kernel launches and nowhere else — the proof that a run went through
 # them
 launches = {}
-# the variant of the latest launch ('narrow', 'wide' or 'wide-global')
+# the variant of the latest launch ('narrow', 'wide', 'wide-global' or
+# 'wide-grid')
 last_variant = None
 
 # order, parent_adj, parent, visible, valid, tree_pos, vis_index,
-# node_at_pos, length, scratch, K, m, rounds, stream
+# node_at_pos, length, scratch, K, m, rounds, stream (the wide and grid
+# variants alike)
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # parent, elem, actor, visible, valid, tree_pos, vis_index, node_at_pos,
 # length, K, m, rounds, stream
@@ -80,22 +97,38 @@ def _count(mode, v):
     launches[mode, v] = launches.get((mode, v), 0) + 1
 
 
+def wide_fits_smem(m):
+    """Whether the wide variant's four planes of m+1 words fit its
+    shared-memory cap at width ``m`` (the C side's
+    ``rga_order_uses_smem``)."""
+    return 4 * (m + 1) * 4 <= cuda_build.SMEM_LIMIT
+
+
 def uses_global_scratch(m):
-    """Whether a wide launch at width ``m`` works on a global-memory
-    scratch (its four planes of m+1 words exceed the shared-memory
-    cap)."""
+    """The C side's answer to :func:`wide_fits_smem`, negated: whether a
+    wide launch at width ``m`` works on a global-memory scratch."""
     fn = cuda_build.load('rga_order', 'rga_order_uses_smem', [ctypes.c_int])
     return not fn(m)
 
 
-def variant(m):
+def sorted_variant(K, m):
+    """The variant :func:`order_from_sorted_cuda` takes at ``K`` rows of
+    width ``m``: ``'wide-grid'`` for a few rows past :data:`M_NARROW`
+    (:data:`GRID_BANDS`, within one grid launch's limits), else
+    ``'wide'``, or ``'wide-global'`` past the shared-memory cap. A pure
+    function of the shape."""
+    if M_NARROW < m and K <= cuda_grid.band_rows(GRID_BANDS, m) and \
+            cuda_grid.fits(K, K * (m + 1)):
+        return 'wide-grid'
+    return 'wide' if wide_fits_smem(m) else 'wide-global'
+
+
+def variant(K, m):
     """The kernel variant ``sequence._rga_order_batched`` and
-    ``sequence._rga_delta_order_batched`` take at width ``m`` on the
-    card: ``'narrow'`` up to :data:`M_NARROW` nodes, else ``'wide'``, or
-    ``'wide-global'`` past the shared-memory cap."""
-    if m <= M_NARROW:
-        return 'narrow'
-    return 'wide-global' if uses_global_scratch(m) else 'wide'
+    ``sequence._rga_delta_order_batched`` take on the card at ``K`` rows
+    of width ``m``: ``'narrow'`` up to :data:`M_NARROW` nodes, else
+    :func:`sorted_variant`'s."""
+    return 'narrow' if m <= M_NARROW else sorted_variant(K, m)
 
 
 def _outputs(K, m, dev):
@@ -186,19 +219,24 @@ def rga_delta_cuda(parent, anchor, elem, actor, valid, rounds):
 
 
 def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
-                           rounds):
+                           rounds, force=None):
     """Launch the wide RGA kernel on contiguous CUDA [K, m] planes: int32
     ``order`` (the stable child sort), ``parent_adj`` (head and padding
     at m) and ``parent``, bool ``visible``/``valid``. ``rounds`` is the
     doubling round count. Returns the plain version's dict of int32
     ``tree_pos``, ``vis_index``, ``node_at_pos`` [K, m] and ``length``
     [K]. The delta orderer's wide rows launch it too (their sort carried
-    the anchor key; only ``tree_pos`` is read).
+    the anchor key; only ``tree_pos`` is read). The variant is
+    :func:`sorted_variant`'s, or ``force`` (``'wide'`` or
+    ``'wide-grid'``).
 
     Bound: per call the kernel must read ``K*m*14`` bytes and write
-    ``K*m*12 + K*4`` bytes; its O(K*m*log m) pointer-doubling loads stay
-    in shared memory up to m = 12,799 — memory- and launch-bound at the
-    main path's widths."""
+    ``K*m*12 + K*4`` bytes. Its O(K*m*log m) pointer-doubling loads are
+    ``2*rounds`` dependent steps: the wide variant runs them in one
+    block's shared memory per row (up to m = 12,799), the grid variant
+    over the whole card with a grid barrier between steps — at the few
+    long rows it takes, the barriers and each step's dependent L2 load
+    set its time, not bytes."""
     K, m = order.shape
     dev = order.device
     if dev.type != 'cuda':
@@ -210,12 +248,25 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
         cuda_build.check(t, name, _I32, (K, m), dev)
     cuda_build.check(visible, 'visible', torch.bool, (K, m), dev)
     cuda_build.check(valid, 'valid', torch.bool, (K, m), dev)
+    v = force or sorted_variant(K, m)
+    if v == 'wide' and not wide_fits_smem(m):
+        v = 'wide-global'
+    if v not in ('wide', 'wide-global', 'wide-grid'):
+        raise ValueError(f'unknown wide RGA variant {force!r}')
+    if v == 'wide-grid':
+        cuda_grid.check(K, K * (m + 1))
     out = _outputs(K, m, dev)
     if K == 0:                  # no job rows: nothing to launch
         return out
-    fn = cuda_build.load('rga_order', 'rga_order_launch', _ARGTYPES)
-    scratch = torch.empty((K, 4 * (m + 1)), dtype=_I32, device=dev) \
-        if uses_global_scratch(m) else None
+    if v == 'wide-grid':
+        fn = cuda_build.load('rga_order', 'rga_grid_launch', _ARGTYPES)
+        words = cuda_build.load('rga_order', 'rga_grid_scratch_words',
+                                [ctypes.c_int] * 2, ctypes.c_longlong)(K, m)
+        scratch = torch.empty(words, dtype=_I32, device=dev)
+    else:
+        fn = cuda_build.load('rga_order', 'rga_order_launch', _ARGTYPES)
+        scratch = torch.empty((K, 4 * (m + 1)), dtype=_I32, device=dev) \
+            if v == 'wide-global' else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(order.data_ptr(), parent_adj.data_ptr(), parent.data_ptr(),
@@ -225,7 +276,7 @@ def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,
                  0 if scratch is None else scratch.data_ptr(), K, m, rounds,
                  stream)
     if err != 0:
-        raise RuntimeError(f'rga_order kernel launch failed: CUDA error '
-                           f'{err}')
-    _count('order', 'wide-global' if scratch is not None else 'wide')
+        raise RuntimeError(f'rga_order kernel launch failed ({v} variant): '
+                           f'CUDA error {err}')
+    _count('order', v)
     return out

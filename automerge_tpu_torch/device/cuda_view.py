@@ -27,14 +27,18 @@ Two implementations, bit-identical by construction:
   each (several rows to a CTA): the warp decodes its row once into
   registers, keeps each class's presence as a bitmask of ceil(m/32)
   words in shared memory and ranks a node with a popcount prefix over
-  those words. Wider rows take one thread block each, with the same
-  bitmasks (in a global scratch of ``K * 6 * ceil(m/32)`` words past the
-  shared-memory cap). :func:`variant` says which a width takes.
+  those words. Wider rows take one thread block each (``'block'``),
+  with the same bitmasks (in a global scratch of ``K * 6 * ceil(m/32)``
+  words past the shared-memory cap, ``'block-global'``) — or, when so
+  few rows would leave most SMs idle (a long text's one row), one
+  cooperative launch that spreads them over the whole card with the
+  bitmasks in a global scratch and grid barriers between its phases
+  (``'grid'``). :func:`variant` says which a shape takes.
 
 :func:`dispatch_edit_stream` launches the kernel for every CUDA tensor
 (raising if the build or the launch fails — there is no fallback) and
 runs the plain version only for tensors on the CPU. A long text (the
-wide format, one row of m > 512 nodes) takes the block variant.
+wide format, one row of m > 512 nodes) takes the grid variant.
 """
 
 import ctypes
@@ -42,7 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, cuda_grid
 
 _I32 = torch.int32
 
@@ -55,18 +59,26 @@ _WIDE_VIS_SHIFT = 22
 # rows up to this many nodes take the warp-per-row variant, wider rows
 # the block-per-row one (the crossover measured on an H100: PERF.md)
 M_WARP_ES = 512
+# ... or the grid variant while there are at most this many of them at a
+# width up to the band's bound: the crossover table measured on an H100
+# (tools/torch_kernel_ab.py --single-row, PERF.md) — up to 2,048 nodes
+# the block per row wins at every row count, from 4,096 to the block's
+# shared-memory cap the grid wins through 32 rows, past it (the block's
+# bitmasks in global memory) at every row count measured, up to 528
+GRID_BANDS = ((2048, 0), (273056, 32), (None, 528))
 
 # launches of the CUDA kernel since the last reset by (mode, variant):
 # mode the vis format ('packed', 'wide' or 'cols'), variant as
 # :func:`variant` names it; counted in edit_stream_cuda where the kernel
 # launches and nowhere else — the proof that a run went through it
 launches = {}
-# the variant of the latest launch ('warp', 'block' or 'block-global')
+# the variant of the latest launch ('warp', 'block', 'block-global' or
+# 'grid')
 last_variant = None
 
 # input formats and variants of the kernel's C entry point
 _FMT_PACKED, _FMT_COLS, _FMT_WIDE = 0, 1, 2
-_VARIANT_WARP, _VARIANT_BLOCK = 0, 1
+_VARIANT_CODES = {'warp': 0, 'block': 1, 'block-global': 1, 'grid': 2}
 
 # variant, fmt, 5 input planes, touched, 5 outputs, cnt, scratch, K, m,
 # mb, e_pad, stream
@@ -80,21 +92,31 @@ def reset_launches():
     launches.clear()
 
 
-def variant(m, force=None):
-    """The kernel variant a launch at width ``m`` takes: ``'warp'`` (one
-    warp per row) up to :data:`M_WARP_ES` nodes, else ``'block'`` (one
-    thread block per row), ``'block-global'`` when the block's bitmasks
-    exceed the shared-memory cap. ``force`` ('warp' or 'block') overrides
-    the width bound."""
-    v = force or ('warp' if m <= M_WARP_ES else 'block')
-    if v not in ('warp', 'block'):
+def block_fits_smem(m):
+    """Whether the block variant's bitmasks (6 words per 32 nodes) fit
+    its shared-memory cap at width ``m`` (the C side's
+    ``edit_stream_block_uses_smem``)."""
+    return 6 * ((m + 31) >> 5) * 4 <= cuda_build.SMEM_LIMIT
+
+
+def variant(K, m, force=None):
+    """The kernel variant a launch of ``K`` rows at width ``m`` takes:
+    ``'warp'`` (one warp per row) up to :data:`M_WARP_ES` nodes, else
+    ``'grid'`` (the rows over the whole card) for as many rows as
+    :data:`GRID_BANDS` sends there and one grid launch takes, else
+    ``'block'`` (one thread block per row), ``'block-global'`` when the
+    block's bitmasks exceed the shared-memory cap. ``force`` ('warp',
+    'block' or 'grid') overrides the shape's pick. A pure function of
+    the shape."""
+    if force is None:
+        force = 'warp' if m <= M_WARP_ES else \
+            'grid' if K <= cuda_grid.band_rows(GRID_BANDS, m) and \
+            cuda_grid.fits(K, K * m) else 'block'
+    if force not in ('warp', 'block', 'grid'):
         raise ValueError(f'unknown edit-stream variant {force!r}')
-    if v == 'block':
-        fn = cuda_build.load('edit_stream', 'edit_stream_block_uses_smem',
-                             [ctypes.c_int])
-        if not fn(m):
-            v = 'block-global'
-    return v
+    if force == 'block' and not block_fits_smem(m):
+        return 'block-global'
+    return force
 
 
 def _unpack_touch(touched_u8, m):
@@ -193,15 +215,15 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     new_idx int32) [K, m] planes. ``touched_u8`` is the uint8
     [K, ceil(m/8)] packbits plane. Returns the same six int32 tensors as
     :func:`edit_stream_packed` / :func:`edit_stream`, on the card.
-    ``force`` picks a variant regardless of the width (see
+    ``force`` picks a variant regardless of the shape (see
     :func:`variant`).
 
     Bound: per call the kernel must read ``K*m*4 + K*ceil(m/8)`` bytes
     (packed; ``K*m*8 + K*ceil(m/8)`` wide) and write
     ``5*K*e_pad*4 + 12*K`` bytes; it does O(K*m) integer work, so it is
     bound by memory traffic and latency, not arithmetic. A long text's
-    one row runs on one thread block, so one SM: far from the card's
-    byte rate."""
+    one row takes the grid variant: its four phases over every SM, with
+    three grid barriers between them, set its time."""
     global last_variant
     if vis_fmt == 'packed':
         v = planes
@@ -242,16 +264,25 @@ def edit_stream_cuda(vis_fmt, planes, touched_u8, e_pad, force=None):
     cnt = torch.empty((K, 3), dtype=_I32, device=dev)
     if K == 0:                  # no job rows: nothing to launch
         return (*outs, cnt)
+    var = variant(K, m, force)
+    if var == 'grid':
+        cuda_grid.check(K, K * m)
     fn = cuda_build.load('edit_stream', 'edit_stream_launch', _ARGTYPES)
-    var = variant(m, force)
-    # the block variant's bitmasks past the shared-memory cap: 6 words
-    # per 32 nodes and row
-    scratch = torch.empty((K, 6 * ((m + 31) >> 5)), dtype=_I32, device=dev) \
-        if var == 'block-global' else None
+    # the block variant's bitmasks past the shared-memory cap, 6 words
+    # per 32 nodes and row; the grid variant's, and its chunk table
+    scratch = None
+    if var == 'block-global':
+        scratch = torch.empty((K, 6 * ((m + 31) >> 5)), dtype=_I32,
+                              device=dev)
+    elif var == 'grid':
+        words = cuda_build.load('edit_stream',
+                                'edit_stream_grid_scratch_words',
+                                [ctypes.c_int] * 2, ctypes.c_longlong)(K, m)
+        scratch = torch.empty(words, dtype=_I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            _VARIANT_WARP if var == 'warp' else _VARIANT_BLOCK, fmt, *ptrs,
+            _VARIANT_CODES[var], fmt, *ptrs,
             touched_u8.data_ptr(), *[o.data_ptr() for o in outs],
             cnt.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
             K, m, mb, e_pad, stream)

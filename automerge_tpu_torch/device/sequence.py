@@ -28,7 +28,9 @@ RGA kernel (:mod:`.cuda_sequence`, ``csrc/rga_order.cu``, the port of
 ``pallas_sequence.py``): rows up to ``cuda_sequence.M_NARROW`` nodes
 take the narrow kernel, which does all four steps, the sort included,
 from the raw planes; wider rows take the PyTorch sort and then the wide
-kernel for steps 2-4.
+kernel for steps 2-4 — one block per row for a batch that fills the
+card, its grid variant over every SM for a few long rows
+(``cuda_sequence.variant``).
 
 Node 0 is the virtual ``'_head'`` element; padding slots carry
 ``valid=False`` and sort to the end.
@@ -215,7 +217,8 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     int32/bool, contiguous; a build or launch failure raises): the
     narrow one straight from these planes up to
     ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort and
-    the wide one. CPU planes take `_rga_order_plain`."""
+    the wide one (its variant by ``cuda_sequence.variant(K, m)``). CPU
+    planes take `_rga_order_plain`."""
     if parent.device.type != 'cuda':
         return _rga_order_plain(parent, elem, actor, visible, valid)
     m = parent.shape[1]
@@ -262,7 +265,8 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
     CUDA planes always go through a kernel (a build or launch failure
     raises): the narrow RGA kernel's delta mode up to
     ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort with the
-    anchor key and the wide kernel. CPU planes take
+    anchor key and the wide kernel (its variant by
+    ``cuda_sequence.variant(K, m)``). CPU planes take
     `_rga_delta_order_plain`."""
     if parent.device.type != 'cuda':
         return _rga_delta_order_plain(parent, anchor, elem, actor, valid)

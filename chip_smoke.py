@@ -12,19 +12,23 @@ exits non-zero without a result line):
 2. build: the three CUDA kernels (one nvcc per source, sm_90a, all
    started together) and the native host libraries (g++), each timed;
 3. kernels vs plain versions, bit-equal: the edit stream on seeded
-   planes (both input formats, its warp and block variants, (K, m,
-   e_pad) shapes from m = 8 to 32,767 on both sides of ``M_WARP_ES``,
-   e_pad = 1, e_pad = m and the e_pad drop path); the RGA order on
-   seeded random, prepend, chain and wide-key trees at (K, m) up to
-   (12288, 64),
-   both sides of ``M_NARROW``, (64, 4096) and (2, 40000) — through the
-   dispatch (narrow kernel, or sort + wide kernel, the last shape on
-   its global-memory variant) and, up to m = 512, both kernels
-   directly; the RGA kernel's delta mode on seeded delta forests
+   planes (both input formats, its warp, block and grid variants, (K,
+   m, e_pad) shapes from m = 8 to 32,767 on both sides of
+   ``M_WARP_ES``, e_pad = 1, e_pad = m and the e_pad drop path); the
+   RGA order on seeded random, prepend, chain and wide-key trees at (K,
+   m) up to (12288, 64), both sides of ``M_NARROW``, (64, 4096), single
+   rows of 513, 3,071, 12,800, 49,152 and 196,608 nodes and 2 and 5
+   rows of 40,000 — through the dispatch (the narrow kernel, or the sort
+   and then the grid variant for a few wide rows, one block per row for
+   many) and each variant directly (narrow and wide up to m = 512, wide
+   and grid above); the RGA kernel's delta mode on seeded delta forests
    (anchors up to 2^22 - 1, elems past 2^15) at widths 9, 33, 129 and
-   513 (the last through the sort with the anchor key + wide kernel);
-   the edit stream's wide format at a long text's width (m past 32,768,
-   the block variant) and at m <= 512 (the warp variant); the flat-map
+   513 (the last through the sort with the anchor key + a wide
+   variant); the edit stream's wide format at a long text's width (m
+   past 32,768) and at m <= 512, each forced onto every variant, and
+   its grid variant at 1 and 3 rows of m in {513, 32,768, 65,536,
+   300,000}, packed and wide, e_pad 1, 8 and m; the C side's
+   shared-memory fits against the Python dispatch's; the flat-map
    resolve's dispatch and both its variants
    (warp and block, forced) on ``gen_docset_workload(cross_clock=True)``
    batches up to the flagship 10,240 docs x 128 ops x 8 actors and
@@ -64,7 +68,7 @@ exits non-zero without a result line):
    digests unchanged; bytes and messages on the wire and the
    ``apply_wire`` time by span;
    4e. config 4: the 180,000-keystroke automerge-perf trace through
-   ``replay_text_block`` (one wide-global RGA launch at m = 196,608),
+   ``replay_text_block`` (one grid RGA launch at m = 196,608),
    equal to a CPU replay; 16 facade changes typing and deleting at a
    cursor on the replayed document, each equal to the CPU document's;
    ``save_snapshot``/``load_snapshot``; the 60,001-change bulk route
@@ -92,9 +96,10 @@ exits non-zero without a result line):
    that launch) against the plain version, bit for bit; then, at the
    largest of those inputs, the kernel and the plain version of what it
    computes, each timed from a CUDA graph (median, min and max of 5
-   replays) and eagerly, the dispatch called eagerly, beside the byte
-   bound and the card's name and power limit; the JSON kernel line (one
-   row per launch key); then the result line.
+   replays) and eagerly, the dispatch called eagerly, and a wide row's
+   other variant (grid or one block per row) from a graph, beside the
+   byte bound and the card's name and power limit; the JSON kernel line
+   (one row per launch key); then the result line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after it. The workload generators (``gen_mixed_docs``,
@@ -104,6 +109,7 @@ just after it. The workload generators (``gen_mixed_docs``,
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -617,8 +623,8 @@ def _kernel_share(prof, what, names):
 
 
 # the hand kernels' function names, as the profiler lists them
-_RGA_KERNELS = ('rga_order_kernel', 'rga_narrow_kernel')
-_ES_KERNELS = ('es_warp_kernel', 'es_block_kernel')
+_RGA_KERNELS = ('rga_order_kernel', 'rga_narrow_kernel', 'rga_grid_kernel')
+_ES_KERNELS = ('es_warp_kernel', 'es_block_kernel', 'es_grid_kernel')
 
 
 # the launch fields of a kernel event in torch.profiler's exported trace
@@ -710,9 +716,9 @@ def _text_trace_path(card, inputs):
         t_replay = (time.perf_counter() - t0) * 1e3
         added = _launch_counts()
         m = int(rep.order['vis_index'].shape[0])
-        if added != {('rga_order', 'order', 'wide-global'): 1}:
+        if added != {('rga_order', 'order', 'wide-grid'): 1}:
             raise AssertionError(f'config 4 replay launched {added}, not '
-                                 f'one wide-global RGA kernel')
+                                 f'one grid RGA kernel')
         t0 = time.perf_counter()
         ref = replay_text_block(block, device='cpu')
         t_cpu = (time.perf_counter() - t0) * 1e3
@@ -727,6 +733,7 @@ def _text_trace_path(card, inputs):
               f' launches {added}; text and elem_ids == cpu', flush=True)
 
         # the replayed document, edited through the facade at a cursor
+        before_e = _launch_counts()
         doc = rep.to_doc(actor_id='author')
         cdoc = ref.to_doc(actor_id='author')
         pos = int(np.random.default_rng(4).integers(len(text) // 4,
@@ -756,6 +763,11 @@ def _text_trace_path(card, inputs):
         else:
             raise AssertionError('save() of a replayed (truncated) '
                                  'document did not raise')
+        rga_e = {k: n for k, n in _added(_launch_counts(), before_e).items()
+                 if k[0] == 'rga_order'}
+        if set(rga_e) != {('rga_order', 'order', 'wide-grid')}:
+            raise AssertionError(f'config 4 edits launched {rga_e}, not '
+                                 f'the grid RGA kernel alone')
         times.sort()
         print(f'config 4 edits ({card}): {n_edits} facade changes at a '
               f'cursor on the replayed document, each == the cpu document; '
@@ -779,8 +791,11 @@ def _text_trace_path(card, inputs):
     t_cbulk = (time.perf_counter() - t0) * 1e3
     if patch != cpatch:
         raise AssertionError('config 4 wire-to-patch: cuda patch != cpu')
-    _require_launch(added_b, 'rga_order', 'the wire-to-patch line')
-    _require_launch(added_b, 'edit_stream', 'the wire-to-patch line')
+    for key in (('rga_order', 'order', 'wide-grid'),
+                ('edit_stream', 'wide', 'grid')):
+        if not added_b.get(key):
+            raise AssertionError(f'the wire-to-patch line did not launch '
+                                 f'{key}: {added_b}')
     print(f'config 4 wire-to-patch ({card}): DeviceBackend.apply_changes of'
           f' {n_bulk} changes into a fresh document on the card (the general '
           f'engine, {fmt} mirror) {t_bulk:.1f} ms (the cpu run '
@@ -1033,7 +1048,7 @@ def _capturing(into):
     def es(vis_fmt, planes, touched_u8, e_pad):
         lead = planes if vis_fmt == 'packed' else planes[0]
         if lead.is_cuda:
-            put(('edit_stream', vis_fmt, cuda_view.variant(lead.shape[1])),
+            put(('edit_stream', vis_fmt, cuda_view.variant(*lead.shape)),
                 'es', (vis_fmt, planes, np.array(touched_u8), e_pad))
         return real['es'](vis_fmt, planes, touched_u8, e_pad)
 
@@ -1041,13 +1056,13 @@ def _capturing(into):
         def rga(*a):
             if a[0].is_cuda:
                 put(('rga_order', 'order',
-                     cuda_sequence.variant(a[0].shape[1])), 'rga', a)
+                     cuda_sequence.variant(*a[0].shape)), 'rga', a)
             return fn(*a)
         return rga
 
     def delta(*a):
         if a[0].is_cuda:
-            v = cuda_sequence.variant(a[0].shape[1])
+            v = cuda_sequence.variant(*a[0].shape)
             put(('rga_order', 'delta' if v == 'narrow' else 'order', v),
                 'delta', a)
         return real['delta'](*a)
@@ -1098,33 +1113,56 @@ def _check_rga_kernel(dev):
     """Phase 3b: the RGA kernels against their plain versions on seeded
     random, prepend, chain and wide-key trees (the last on the narrow
     kernel's 64-bit and 128-bit key paths), through the dispatch (narrow
-    up to ``M_NARROW``, wide above, the last shape on the wide variant's
-    global memory) and, up to ``M_NARROW``, both variants directly."""
+    up to ``M_NARROW``; above it the grid variant for a few rows, one
+    block per row for many) and each variant directly: up to
+    ``M_NARROW`` the narrow and wide ones, above it the wide (on global
+    memory past its shared-memory cap) and grid ones. The shapes add
+    single long rows (the long text's 49,152, config 4's 196,608) and a
+    few rows at 40,000. The C side's shared-memory fit of the wide
+    variant and its grid launch limits must agree with the Python
+    dispatch's."""
     import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_grid
     from automerge_tpu_torch.device import cuda_sequence, sequence
     n = cuda_sequence.M_NARROW
+    limits = [cuda_build.load('rga_order', name, [], ctypes.c_longlong)()
+              for name in ('grid_max_rows', 'grid_max_slots')]
+    if limits != [cuda_grid.GRID_MAX_ROWS, cuda_grid.GRID_MAX_SLOTS]:
+        raise AssertionError(f'the grid launch limits: C {limits}, Python '
+                             f'{cuda_grid.GRID_MAX_ROWS}, '
+                             f'{cuda_grid.GRID_MAX_SLOTS}')
+    shapes = ((1, 2), (6, 16), (37, 200), (12288, 64), (300, n),
+              (300, n + 1), (1, 513), (1, 3071), (64, 4096), (1, 12800),
+              (2, 40000), (5, 40000), (1, 49152), (1, 196608))
+    for K, m in shapes:
+        if cuda_sequence.uses_global_scratch(m) == \
+                cuda_sequence.wide_fits_smem(m):
+            raise AssertionError(f'the wide RGA variant\'s shared-memory '
+                                 f'fit at m={m}: C and Python disagree')
     for tree, gen in (*TREES.items(), ('wide-key', wide_key_trees)):
         rng = np.random.default_rng(4321)
-        for K, m in ((1, 2), (6, 16), (37, 200), (12288, 64), (300, n),
-                     (300, n + 1), (64, 4096), (2, 40000)):
+        for K, m in shapes:
             planes = [torch.as_tensor(p).to(dev) for p in gen(rng, K, m)]
             want = sequence._rga_order_plain(*planes)
             got = {'dispatch': sequence._rga_order_batched(*planes)}
             ran = cuda_sequence.last_variant
-            if ran != cuda_sequence.variant(m) or \
-                    (ran == 'wide-global') != (m == 40000):
-                raise AssertionError(f'rga {tree} at m={m}: ran {ran}')
+            if ran != cuda_sequence.variant(K, m):
+                raise AssertionError(f'rga {tree} at {(K, m)}: ran {ran}, '
+                                     f'not {cuda_sequence.variant(K, m)}')
             rounds = sequence._ceil_log2(m) + 1
+            order, padj, parent = sequence._child_sort(
+                planes[0], planes[1], planes[2], planes[4])
+            srt = [t.to(torch.int32) for t in (order, padj, parent)]
             if m <= cuda_sequence.M_NARROW:
                 got['narrow'] = cuda_sequence.rga_order_cuda(
                     *(t.to(torch.int32) for t in planes[:3]), planes[3],
                     planes[4], rounds=rounds)
-                order, padj, parent = sequence._child_sort(
-                    planes[0], planes[1], planes[2], planes[4])
-                got['wide'] = cuda_sequence.order_from_sorted_cuda(
-                    order.to(torch.int32), padj.to(torch.int32),
-                    parent.to(torch.int32), planes[3], planes[4],
-                    rounds=rounds)
+                forced = ('wide',)
+            else:
+                forced = ('wide', 'wide-grid')
+            for v in forced:
+                got[v] = cuda_sequence.order_from_sorted_cuda(
+                    *srt, planes[3], planes[4], rounds=rounds, force=v)
             torch.cuda.synchronize()
             for how, out in got.items():
                 if _bits_err(out, want, f'rga {(K, m)}', mask=planes[4]):
@@ -1152,7 +1190,7 @@ def _check_delta_kernel(dev):
         want = sequence._rga_delta_order_plain(*planes)
         got = {'dispatch': sequence._rga_delta_order_batched(*planes)}
         ran = cuda_sequence.last_variant
-        if ran != cuda_sequence.variant(m):
+        if ran != cuda_sequence.variant(K, m):
             raise AssertionError(f'rga delta at m={m}: ran {ran}')
         if m <= cuda_sequence.M_NARROW:
             got['narrow'] = cuda_sequence.rga_delta_cuda(
@@ -1179,11 +1217,22 @@ def _es_plain(vis_fmt, planes, t_u8, e_pad):
 
 def _check_wide_edit_stream(dev):
     """Phase 3e: the edit stream's wide format (two word planes) against
-    its plain version: a long text's one row (m past 32,768: the block
-    variant) and rows at m <= 512 (the warp variant), each also forced
-    onto the other variant."""
+    its plain version: a long text's one row (m past 32,768) and rows at
+    m <= 512 (the warp variant), each also forced onto the other
+    variants; then the grid variant at K = 1 and 3 rows of m in {513,
+    32,768, 65,536, 300,000}, packed (up to its 15-bit indexes) and
+    wide, e_pad 1, 8 and m, forced and through the dispatch. The C
+    side's shared-memory fit of the block variant must agree with the
+    Python dispatch's."""
     import torch
-    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.device import cuda_build, cuda_view
+    fits = cuda_build.load('edit_stream', 'edit_stream_block_uses_smem',
+                           [ctypes.c_int])
+    for m in (513, 32768, 65536, 273056, 273057, 300000):
+        if bool(fits(m)) != cuda_view.block_fits_smem(m):
+            raise AssertionError(f'the edit stream block variant\'s '
+                                 f'shared-memory fit at m={m}: C and '
+                                 f'Python disagree')
     rng = np.random.default_rng(97531)
     for K, m, e_pad in ((1, 40960, 64), (2, 65536, 256), (64, 200, 24),
                         (1024, 512, 64)):
@@ -1192,8 +1241,8 @@ def _check_wide_edit_stream(dev):
         planes = tuple(torch.as_tensor(x).to(dev)
                        for x in wide_planes(pv, nv, pi, ni))
         want = _es_plain('wide', planes, t_u8, e_pad)
-        picked = cuda_view.variant(m)
-        for force in (None, 'warp', 'block'):
+        picked = cuda_view.variant(K, m)
+        for force in (None, 'warp', 'block', 'grid'):
             got = cuda_view.edit_stream_cuda('wide', planes, t_u8, e_pad,
                                              force=force)
             torch.cuda.synchronize()
@@ -1204,8 +1253,37 @@ def _check_wide_edit_stream(dev):
                 raise AssertionError(f'wide kernel ({cuda_view.last_variant})'
                                      f' != plain at {(K, m, e_pad)}')
         print(f'kernel: edit_stream wide format (K={K}, m={m}, '
-              f'e_pad={e_pad}), warp and block variants, bit-equal to the '
-              f'plain version (dispatch picks {picked})', flush=True)
+              f'e_pad={e_pad}), warp, block and grid variants, bit-equal '
+              f'to the plain version (dispatch picks {picked})', flush=True)
+    for K in (1, 3):
+        for m in (513, 32768, 65536, 300000):
+            pv, nv, pi, ni, tb, packed = random_planes(rng, K, m)
+            t_u8 = torch.as_tensor(tb).to(dev)
+            fmts = {'wide': tuple(torch.as_tensor(x).to(dev)
+                                  for x in wide_planes(pv, nv, pi, ni))}
+            if m <= 32768:
+                fmts['packed'] = torch.as_tensor(packed).to(dev)
+            for fmt, planes in fmts.items():
+                for e_pad in (1, 8, m):
+                    want = _es_plain(fmt, planes, t_u8, e_pad)
+                    outs = [cuda_view.edit_stream_cuda(fmt, planes, t_u8,
+                                                       e_pad, force='grid')]
+                    if cuda_view.variant(K, m) == 'grid':
+                        outs.append(cuda_view.dispatch_edit_stream(
+                            fmt, planes, tb, e_pad))
+                    torch.cuda.synchronize()
+                    if cuda_view.last_variant != 'grid':
+                        raise AssertionError(f'edit stream grid at {(K, m)} '
+                                             f'ran {cuda_view.last_variant}')
+                    for got in outs:
+                        if _max_abs_err(got, want, fmt):
+                            raise AssertionError(
+                                f'{fmt} grid kernel != plain at '
+                                f'{(K, m, e_pad)}')
+            print(f'kernel: edit_stream grid variant (K={K}, m={m}), '
+                  f'{" and ".join(fmts)}, e_pad 1, 8 and m, bit-equal to '
+                  f'the plain version (dispatch picks '
+                  f'{cuda_view.variant(K, m)})', flush=True)
 
 
 LONG_CHARS, LONG_TICKS, LONG_WARM, LONG_BATCH = 32760, 48, 8, 8
@@ -1363,6 +1441,13 @@ def _long_text_path(card, inputs):
                 raise AssertionError('the long text is not on the wide '
                                      'mirror')
             arm_launches = _added(_launch_counts(), launches0)
+            if imode == 'rebuild':
+                for key in (('rga_order', 'order', 'wide-grid'),
+                            ('edit_stream', 'wide', 'grid')):
+                    if not arm_launches.get(key):
+                        raise AssertionError(f'the long text\'s rebuild '
+                                             f'arm did not launch {key}: '
+                                             f'{arm_launches}')
             times.sort()
             p50 = times[len(times) // 2]
             p90 = times[int(0.9 * len(times))]
@@ -1432,7 +1517,7 @@ def _check_flatmap_kernel(dev):
     and a slot-heavy shape on the block variant's global memory; the
     first document's first ops carry out-of-range segment ids."""
     import torch
-    from automerge_tpu_torch.device import cuda_merge, merge
+    from automerge_tpu_torch.device import cuda_build, cuda_merge, merge
     from automerge_tpu_torch.device.workloads import gen_docset_workload
     for D, N, A, keys, S in ((1, 8, 2, 3, 8), (3, 130, 4, 7, 130),
                              (8, 128, 8, 32, 128), (9, 257, 3, 40, 257),
@@ -1448,7 +1533,7 @@ def _check_flatmap_kernel(dev):
         ran = []
         for force in (None, 'warp', 'block'):
             if force == 'warp' and cuda_merge.warp_slice_bytes(N, S, A) > \
-                    cuda_merge._SMEM_LIMIT:
+                    cuda_build.SMEM_LIMIT:
                 continue
             got = cuda_merge.resolve_cuda(*args, num_segments=S,
                                           force=force)
@@ -1611,8 +1696,9 @@ def _kernel_calls(key, kind, args):
     must move (each input read once, each output written once) at
     ``shape``."""
     import torch
-    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
-    from automerge_tpu_torch.device import cuda_view, merge, sequence
+    from automerge_tpu_torch.device import cuda_grid, cuda_merge
+    from automerge_tpu_torch.device import cuda_sequence, cuda_view, merge
+    from automerge_tpu_torch.device import sequence
     i32 = torch.int32
     c = {'extra': {}}
     if kind == 'es':
@@ -1626,6 +1712,12 @@ def _kernel_calls(key, kind, args):
             vis_fmt, planes, tb, e_pad)
         c['kernel'] = lambda: cuda_view.edit_stream_cuda(
             vis_fmt, ready, t_u8, e_pad)
+        # the other wide-row variant: one block per row beside the grid
+        other = {'grid': 'block', 'block': 'grid',
+                 'block-global': 'grid'}.get(key[2])
+        if other and (other != 'grid' or cuda_grid.fits(K, K * m)):
+            c['extra'][other] = lambda: cuda_view.edit_stream_cuda(
+                vis_fmt, ready, t_u8, e_pad, force=other)
         c['plain'] = lambda: _es_plain(vis_fmt, ready, t_u8, e_pad)
         c['kernel_plain'] = c['plain']
         c['err'] = lambda got, want: _max_abs_err(got, want, str(key))
@@ -1671,6 +1763,12 @@ def _kernel_calls(key, kind, args):
                 parent, elem, actor, valid, anchor)]
             c['kernel'] = lambda: cuda_sequence.order_from_sorted_cuda(
                 *srt, *flags, rounds=rounds)
+            # the other wide variant: one block per row beside the grid
+            other = 'wide' if key[2] == 'wide-grid' else 'wide-grid'
+            if other == 'wide' or cuda_grid.fits(K, K * (m + 1)):
+                c['extra'][other] = \
+                    lambda: cuda_sequence.order_from_sorted_cuda(
+                        *srt, *flags, rounds=rounds, force=other)
             c['kernel_plain'] = lambda: sequence._order_from_sorted_plain(
                 *srt, *flags)
         # the delta mode reads four int32 planes and valid, and writes
@@ -1769,7 +1867,8 @@ def _kernel_row(key, n, entries, card):
             'ms': t_k[0], 'plain_ms': t_plain[0], 'bound_ms': bound,
             'bound_by': 'bytes', 'library_ms': None, 'mode': key[1],
             'variant': key[2], 'shape': big['shape'],
-            'ms_eager': t_k_eager[0], 'plain_ms_eager': t_plain_eager[0]}
+            'ms_eager': t_k_eager[0], 'plain_ms_eager': t_plain_eager[0],
+            'other_variants_ms': {v: t[0] for v, t in t_extra.items()}}
 
 
 def main():
@@ -1779,8 +1878,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from automerge_tpu_torch import native as amnative
-    from automerge_tpu_torch.device import (cuda_build, cuda_merge,
-                                            cuda_sequence, cuda_view)
+    from automerge_tpu_torch.device import (cuda_build, cuda_grid,
+                                            cuda_merge, cuda_sequence,
+                                            cuda_view)
     from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
     from automerge_tpu_torch.utils.metrics import metrics
 
@@ -1824,8 +1924,10 @@ def main():
         if _max_abs_err(want, want_c, 'plain'):
             raise AssertionError(f'packed plain != cols plain at '
                                  f'{(K, m, e_pad)}')
-        picked = cuda_view.variant(m)
-        for force in (None, 'warp', 'block'):
+        picked = cuda_view.variant(K, m)
+        forced = ('warp', 'block', 'grid') if cuda_grid.fits(K, K * m) \
+            else ('warp', 'block')
+        for force in (None, *forced):
             for fmt, planes in (('packed', v), ('cols', cols)):
                 got = cuda_view.edit_stream_cuda(fmt, planes, t_u8, e_pad,
                                                  force=force)
@@ -1839,9 +1941,9 @@ def main():
                         f'at {(K, m, e_pad)}')
         drops = bool((want[5] > e_pad).any())
         print(f'kernel: edit_stream (K={K}, m={m}, e_pad={e_pad}) packed+'
-              f'cols, warp and block variants, bit-equal to the plain '
-              f'version (dispatch picks {picked}; drop path hit: {drops})',
-              flush=True)
+              f'cols, {", ".join(forced)} variants, bit-equal to the '
+              f'plain version (dispatch picks {picked}; drop path hit: '
+              f'{drops})', flush=True)
     _check_rga_kernel(dev)
     _check_delta_kernel(dev)
     _check_wide_edit_stream(dev)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from automerge_tpu.device import pallas_view as jv
+from automerge_tpu_torch.device import cuda_grid
 from automerge_tpu_torch.device import cuda_view as tv
 
 from chip_smoke import random_planes, wide_planes
@@ -116,10 +117,65 @@ def test_dispatch_on_cpu_uses_the_plain_version(fmt):
 
 def test_warp_bound():
     assert tv.M_WARP_ES >= 32
-    assert tv.variant(tv.M_WARP_ES) == 'warp'
-    assert tv.variant(4096, force='warp') == 'warp'
+    assert tv.variant(1, tv.M_WARP_ES) == 'warp'
+    assert tv.variant(1, 4096, force='warp') == 'warp'
     with pytest.raises(ValueError):
-        tv.variant(64, force='grid')
+        tv.variant(1, 64, force='bogus')
+
+
+@pytest.mark.parametrize('K,m,want', [
+    (12288, 64, 'warp'),            # config 5's ticks
+    (1, 65536, 'grid'),             # config 4's bulk line (wide)
+    (1, 49152, 'grid'),             # the long text's rebuild arm (wide)
+    (1, 32768, 'grid'),             # the long text's first apply (packed)
+    (528, 4096, 'block'),           # rows that fill the card
+    (33, 65536, 'block'),
+    (1, 2048, 'block'),             # one short row: the block wins
+    (1, 4096, 'grid'),
+    (528, 300000, 'grid'),          # past the block's shared memory
+    (529, 300000, 'block-global'),  # past the rows measured
+    (8193, 300000, 'block-global'),
+    (984, 273057, 'block-global'),  # past one grid launch's slots
+    (528, 600000, 'block-global'),
+])
+def test_variant_at_the_main_paths_shapes(K, m, want):
+    """The pure dispatch at the shapes the main paths hand the edit
+    stream: a few long rows take the grid variant, a batch that fills
+    the card one block per row."""
+    assert tv.variant(K, m) == want
+    assert tv.variant(K, m, force='grid') == 'grid'
+    assert tv.variant(K, m, force='block') == \
+        ('block' if tv.block_fits_smem(m) else 'block-global')
+
+
+def test_variant_smem_fit_and_grid_bands():
+    assert tv.block_fits_smem(273056)
+    assert not tv.block_fits_smem(273057)
+    for bound, rows in tv.GRID_BANDS:
+        m = bound or 300000
+        if rows:
+            assert tv.variant(rows, m) == 'grid'
+        assert tv.variant(rows + 1, m) == \
+            ('block' if tv.block_fits_smem(m) else 'block-global')
+
+
+@pytest.mark.parametrize('K,slots,ok', [
+    (1, 1, True),
+    (cuda_grid.GRID_MAX_ROWS, 1 << 20, True),
+    (cuda_grid.GRID_MAX_ROWS + 1, 1 << 20, False),
+    (528, cuda_grid.GRID_MAX_SLOTS, True),
+    (984, 984 * 273057, False),     # the first shape past the slots
+])
+def test_grid_launch_limits(K, slots, ok):
+    """One grid launch's limits, as csrc/grid.cuh sets them: a shape
+    past them never takes the grid variant, and a forced one raises."""
+    assert cuda_grid.fits(K, slots) == ok
+    if ok:
+        cuda_grid.check(K, slots)
+    else:
+        with pytest.raises(ValueError):
+            cuda_grid.check(K, slots)
+    assert cuda_grid.GRID_MAX_SLOTS == (2**31 - 1) // 8
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -153,7 +209,7 @@ def test_cuda_kernel_matches_plain(cuda_device, fmt, K, m, e_pad):
     got = tv.dispatch_edit_stream(fmt, planes, tb, e_pad)
     torch.cuda.synchronize()
     assert sum(tv.launches.values()) == before + 1
-    assert tv.last_variant == tv.variant(m)
+    assert tv.last_variant == tv.variant(K, m)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
@@ -185,13 +241,15 @@ def test_cuda_variants_match_plain(cuda_device, fmt, i, e_pad):
         assert bool((want[5] > e).any())      # the drop path is hit
     before = sum(tv.launches.values())
     got = tv.edit_stream_cuda(fmt, planes, t_u8, e)
-    assert tv.last_variant == tv.variant(m) == \
-        ('warp' if m <= tv.M_WARP_ES else 'block')
+    assert tv.last_variant == tv.variant(K, m) == \
+        ('warp' if m <= tv.M_WARP_ES else
+         'grid' if K <= cuda_grid.band_rows(tv.GRID_BANDS, m) else
+         'block')
     forced = [tv.edit_stream_cuda(fmt, planes, t_u8, e, force=v)
-              for v in ('warp', 'block')]
+              for v in ('warp', 'block', 'grid')]
     torch.cuda.synchronize()
-    assert sum(tv.launches.values()) == before + 3
-    assert tv.last_variant == 'block'
+    assert sum(tv.launches.values()) == before + 4
+    assert tv.last_variant == 'grid'
     for out in (got, *forced):
         for a, b in zip(want, out):
             assert a.dtype == b.dtype and torch.equal(a, b)
@@ -201,8 +259,8 @@ def test_cuda_variants_match_plain(cuda_device, fmt, i, e_pad):
 def test_cuda_block_global_matches_plain(cuda_device):
     m = 300_000                     # past the block's shared-memory cap
     planes, t_u8, want = _card_case(cuda_device, 'cols', 2, m, 4096, 3)
-    assert tv.variant(m) == 'block-global'
-    got = tv.edit_stream_cuda('cols', planes, t_u8, 4096)
+    assert tv.variant(2, m, force='block') == 'block-global'
+    got = tv.edit_stream_cuda('cols', planes, t_u8, 4096, force='block')
     torch.cuda.synchronize()
     assert tv.last_variant == 'block-global'
     for a, b in zip(want, got):
@@ -212,13 +270,66 @@ def test_cuda_block_global_matches_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('m', [512, 40000, 65536])
 def test_cuda_wide_long_text_matches_plain(cuda_device, m):
-    """A long text's one row on the wide format (m past 32,768: the block
-    variant; at 65,536 its bitmasks are exactly 48 KB, which with the
-    scan's static storage needs the shared-memory opt-in) and a
-    warp-width row, against the plain version."""
+    """A long text's one row on the wide format (m past 32,768: the grid
+    variant, and the block variant forced, whose bitmasks at 65,536 are
+    exactly 48 KB, which with the scan's static storage needs the
+    shared-memory opt-in) and a warp-width row, against the plain
+    version."""
     planes, t_u8, want = _card_case(cuda_device, 'wide', 1, m, 64, m)
     got = tv.edit_stream_cuda('wide', planes, t_u8, 64)
     torch.cuda.synchronize()
-    assert tv.last_variant == ('warp' if m <= tv.M_WARP_ES else 'block')
+    assert tv.last_variant == ('warp' if m <= tv.M_WARP_ES else 'grid')
+    outs = [got]
+    if m > tv.M_WARP_ES:
+        outs.append(tv.edit_stream_cuda('wide', planes, t_u8, 64,
+                                        force='block'))
+        torch.cuda.synchronize()
+        assert tv.last_variant == 'block'
+    for out in outs:
+        for a, b in zip(want, out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the grid variant's shapes: one or three long rows, the packed format
+# up to its 15-bit indexes, e_pad 1, 8 and m
+GRID_CASES = [(fmt, K, m) for K in (1, 3)
+              for m in (513, 32768, 65536, 300000)
+              for fmt in ('packed', 'wide', 'cols')
+              if fmt != 'packed' or m <= 32768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('e_pad', ['one', 'eight', 'm'])
+@pytest.mark.parametrize('fmt,K,m', GRID_CASES)
+def test_cuda_grid_matches_plain(cuda_device, fmt, K, m, e_pad):
+    e = {'one': 1, 'eight': 8, 'm': m}[e_pad]
+    planes, t_u8, want = _card_case(cuda_device, fmt, K, m, e, K * m + e)
+    before = tv.launches.get((fmt, 'grid'), 0)
+    outs = [tv.edit_stream_cuda(fmt, planes, t_u8, e, force='grid')]
+    if tv.variant(K, m) == 'grid':
+        outs.append(tv.dispatch_edit_stream(fmt, planes, t_u8.cpu().numpy(),
+                                            e))
+    torch.cuda.synchronize()
+    assert tv.launches[(fmt, 'grid')] == before + len(outs)
+    for out in outs:
+        for a, b in zip(want, out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fmt', ['packed', 'wide'])
+def test_cuda_grid_refuses_past_its_rows(cuda_device, fmt):
+    """A forced grid launch of more rows than one launch takes raises
+    before it reaches the card; the dispatch gives those rows one block
+    each."""
+    K, m = cuda_grid.GRID_MAX_ROWS + 1, 513
+    planes, t_u8, want = _card_case(cuda_device, fmt, K, m, 8, K + m)
+    before = dict(tv.launches)
+    with pytest.raises(ValueError):
+        tv.edit_stream_cuda(fmt, planes, t_u8, 8, force='grid')
+    assert tv.launches == before
+    got = tv.edit_stream_cuda(fmt, planes, t_u8, 8)
+    torch.cuda.synchronize()
+    assert tv.last_variant == tv.variant(K, m) == 'block'
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)

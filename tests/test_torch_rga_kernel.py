@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from automerge_tpu_torch.device import cuda_sequence, sequence
+from automerge_tpu_torch.device import cuda_grid, cuda_sequence, sequence
 
 from chip_smoke import TREES, delta_forests, random_trees, wide_key_trees
 
@@ -102,9 +102,60 @@ def test_cpu_planes_take_the_plain_version():
 
 def test_dispatch_bounds():
     assert 1 <= cuda_sequence.M_NARROW <= 512
-    assert cuda_sequence.variant(1) == 'narrow'
-    assert cuda_sequence.variant(cuda_sequence.M_NARROW) == 'narrow'
-    assert cuda_sequence.variant(9) == 'narrow'
+    assert cuda_sequence.variant(1, 1) == 'narrow'
+    assert cuda_sequence.variant(1, cuda_sequence.M_NARROW) == 'narrow'
+    assert cuda_sequence.variant(12288, 9) == 'narrow'
+
+
+@pytest.mark.parametrize('K,m,want', [
+    (12288, 64, 'narrow'),          # config 5's rebuild tick
+    (1, 196608, 'wide-grid'),       # config 4's replay and facade edits
+    (1, 49152, 'wide-grid'),        # the long text's rebuild arm
+    (1, 65536, 'wide-grid'),        # config 4's bulk line
+    (528, 4096, 'wide'),            # rows that fill the card
+    (528, 12799, 'wide'),
+    (1, 8192, 'wide'),              # one short row: the block wins
+    (2, 10240, 'wide-grid'),
+    (3, 10240, 'wide'),
+    (8, 12799, 'wide-grid'),
+    (9, 12799, 'wide'),
+    (32, 40000, 'wide-grid'),
+    (132, 49152, 'wide-global'),    # past the cap, rows that fill it
+    (32, 8388606, 'wide-grid'),     # one grid launch's last slots
+    (32, 8388608, 'wide-global'),   # past them
+])
+def test_variant_at_the_main_paths_shapes(K, m, want):
+    """The pure dispatch at the shapes the main paths hand the RGA
+    kernel: a few long rows take the grid variant, a batch that fills
+    the card one block per row."""
+    assert cuda_sequence.variant(K, m) == want
+    assert cuda_sequence.sorted_variant(K, m) == \
+        ('wide' if m <= cuda_sequence.M_NARROW else want)
+
+
+def test_variant_smem_fit_and_grid_bands():
+    assert cuda_sequence.wide_fits_smem(12799)
+    assert not cuda_sequence.wide_fits_smem(12800)
+    for bound, rows in cuda_sequence.GRID_BANDS:
+        m = bound or 196608
+        if rows:
+            assert cuda_sequence.variant(rows, m) == 'wide-grid'
+        assert cuda_sequence.variant(rows + 1, m) == \
+            ('wide' if cuda_sequence.wide_fits_smem(m) else 'wide-global')
+
+
+@pytest.mark.parametrize('tree', ['chain', 'prepend'])
+def test_rga_plain_matches_jax_on_one_long_row(tree):
+    """A K = 1 row past 4,096 nodes (ceil(log2 m) = 13, so 14 doubling
+    rounds), the grid variant's shape: the plain version against the JAX
+    package."""
+    import jax.numpy as jnp
+    from automerge_tpu.device import sequence as js
+    planes = TREES[tree](np.random.default_rng(4097), 1, 4097)
+    assert sequence._ceil_log2(4097) + 1 == 14
+    want = js.rga_order_batch(*(jnp.asarray(p) for p in planes))
+    got = sequence._rga_order_plain(*(torch.as_tensor(p) for p in planes))
+    _same({k: v.numpy() for k, v in got.items()}, want, planes[4])
 
 
 def test_cpu_delta_planes_take_the_plain_version():
@@ -149,8 +200,9 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()
     assert sum(cuda_sequence.launches.values()) == before + 1
-    assert cuda_sequence.uses_global_scratch(m) == (m == 40000)
-    assert cuda_sequence.last_variant == cuda_sequence.variant(m)
+    assert cuda_sequence.uses_global_scratch(m) == (m == 40000) == \
+        (not cuda_sequence.wide_fits_smem(m))
+    assert cuda_sequence.last_variant == cuda_sequence.variant(K, m)
     valid = planes[4]
     for k in OUTS:
         assert got[k].dtype == want[k].dtype, k
@@ -168,7 +220,10 @@ def test_cuda_wide_kernel_at_the_default_smem_edge(cuda_device, m):
     must opt in."""
     planes = _card_planes('random', 4, m, cuda_device)
     want = sequence._rga_order_plain(*planes)
-    got = sequence._rga_order_batched(*planes)
+    got = cuda_sequence.order_from_sorted_cuda(
+        *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
+        planes[3], planes[4], rounds=sequence._ceil_log2(m) + 1,
+        force='wide')
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide'
     _same({k: v.cpu() for k, v in got.items()},
@@ -193,8 +248,11 @@ def test_cuda_dispatch_matches_plain(cuda_device, tree, i):
     torch.cuda.synchronize()
     assert sum(cuda_sequence.launches.values()) == before + 1
     expect = 'narrow' if m <= cuda_sequence.M_NARROW else \
+        'wide-grid' if K <= cuda_grid.band_rows(cuda_sequence.GRID_BANDS,
+                                                m) else \
         'wide-global' if m >= 12800 else 'wide'
-    assert cuda_sequence.variant(m) == cuda_sequence.last_variant == expect
+    assert cuda_sequence.variant(K, m) == cuda_sequence.last_variant == \
+        expect
     _same({k: v.cpu() for k, v in got.items()},
           {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
 
@@ -237,6 +295,46 @@ def test_cuda_narrow_path_makes_no_sort(cuda_device, monkeypatch):
           {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
 
 
+# the grid variant's shapes: long single rows (config 4's replay at
+# 196,608, the long text's rebuild at 49,152), a few rows at 40,000,
+# and forced launches at widths the dispatch gives the wide variant
+GRID_SHAPES = [(1, 12800), (1, 49152), (1, 196608), (2, 40000), (5, 40000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tree', sorted(TREES))
+@pytest.mark.parametrize('K,m', GRID_SHAPES)
+def test_cuda_grid_dispatch_matches_plain(cuda_device, tree, K, m):
+    planes = _card_planes(tree, K, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    before = cuda_sequence.launches.get(('order', 'wide-grid'), 0)
+    got = sequence._rga_order_batched(*planes)
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'wide-grid'
+    assert cuda_sequence.launches[('order', 'wide-grid')] == before + 1
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tree', sorted(CARD_TREES))
+@pytest.mark.parametrize('K,m', [(1, 513), (1, 3071), (64, 513),
+                                 (300, 3071), (40, 4096)])
+def test_cuda_grid_forced_matches_plain(cuda_device, tree, K, m):
+    """The grid variant forced at widths and row counts the dispatch
+    gives the wide one (several rows a CTA, rows straddling CTAs)."""
+    planes = _card_planes(tree, K, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    got = cuda_sequence.order_from_sorted_cuda(
+        *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
+        planes[3], planes[4], rounds=sequence._ceil_log2(m) + 1,
+        force='wide-grid')
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'wide-grid'
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())
+
+
 def _delta_planes(K, m, dev, seed=0):
     return [torch.as_tensor(p).to(dev)
             for p in delta_forests(np.random.default_rng(K + m + seed), K,
@@ -256,7 +354,7 @@ def test_cuda_delta_dispatch_matches_plain(cuda_device, K, m):
     before = dict(cuda_sequence.launches)
     got = sequence._rga_delta_order_batched(*planes)
     torch.cuda.synchronize()
-    v = cuda_sequence.variant(m)
+    v = cuda_sequence.variant(K, m)
     key = ('delta' if v == 'narrow' else 'order', v)
     assert cuda_sequence.last_variant == v
     assert cuda_sequence.launches[key] == before.get(key, 0) + 1
@@ -294,3 +392,27 @@ def test_cuda_delta_with_zero_anchors_is_the_rebuild_order(cuda_device):
                                        elem, actor, valid, rounds=rounds)
     torch.cuda.synchronize()
     assert torch.equal(got[valid], want[valid])
+
+
+@pytest.mark.cuda
+def test_cuda_grid_refuses_past_its_rows(cuda_device):
+    """A forced grid launch of more rows than one launch takes raises
+    before it reaches the card; the dispatch gives those rows one block
+    each."""
+    K, m = cuda_grid.GRID_MAX_ROWS + 1, 513
+    planes = _card_planes('random', K, m, cuda_device)
+    want = sequence._rga_order_plain(*planes)
+    srt = [t.to(torch.int32) for t in _sorted_inputs(planes)[:3]]
+    rounds = sequence._ceil_log2(m) + 1
+    before = dict(cuda_sequence.launches)
+    with pytest.raises(ValueError):
+        cuda_sequence.order_from_sorted_cuda(*srt, planes[3], planes[4],
+                                             rounds=rounds,
+                                             force='wide-grid')
+    assert cuda_sequence.launches == before
+    got = sequence._rga_order_batched(*planes)
+    torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == cuda_sequence.variant(K, m) == \
+        'wide'
+    _same({k: v.cpu() for k, v in got.items()},
+          {k: v.cpu() for k, v in want.items()}, planes[4].cpu())

@@ -10,7 +10,8 @@ JAX package's.
   ones on seeded clocks.
 * On the card (``cuda`` marker): the replay of the 180,000-keystroke
   automerge-perf trace equals the CPU replay, and the RGA kernel's
-  wide-global variant at that width (1 row of 196,608 nodes) equals its
+  variant at that width (1 row of 196,608 nodes: the grid variant, and
+  the one-block-per-row variant on global memory forced) equals its
   plain version.
 """
 
@@ -152,8 +153,8 @@ def test_cuda_replay_of_the_perf_trace_equals_the_cpu(cuda_device):
     torch.cuda.synchronize()
     want = ttb.replay_text_block(block, device='cpu')
     assert got.order['vis_index'].shape[0] == 196608
-    assert cuda_sequence.launches.get(('order', 'wide-global'), 0) == \
-        before.get(('order', 'wide-global'), 0) + 1
+    assert cuda_sequence.launches.get(('order', 'wide-grid'), 0) == \
+        before.get(('order', 'wide-grid'), 0) + 1
     assert got.text() == want.text()
     assert got.elem_ids() == want.elem_ids()
     for k in ('vis_index', 'node_at_pos', 'length'):
@@ -165,15 +166,23 @@ def test_cuda_wide_global_rga_at_the_perf_traces_width(cuda_device):
     arrays, _ = traces.trace_to_device_arrays(
         traces.gen_editing_trace(180000, seed=0), pad_to=196608)
     planes = [torch.from_numpy(a)[None].to(cuda_device) for a in arrays]
-    assert cuda_sequence.variant(196608) == 'wide-global'
+    assert cuda_sequence.variant(1, 196608) == 'wide-grid'
     want = sequence._rga_order_plain(*planes)
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()
+    assert cuda_sequence.last_variant == 'wide-grid'
+    srt = [t.to(torch.int32) for t in sequence._child_sort(
+        planes[0], planes[1], planes[2], planes[4])]
+    wide = cuda_sequence.order_from_sorted_cuda(
+        *srt, planes[3], planes[4],
+        rounds=sequence._ceil_log2(196608) + 1, force='wide')
+    torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide-global'
     valid = planes[4]
-    for k in want:
-        assert got[k].dtype == want[k].dtype, k
-        if k == 'tree_pos':
-            assert torch.equal(got[k][valid], want[k][valid]), k
-        else:
-            assert torch.equal(got[k], want[k]), k
+    for out in (got, wide):
+        for k in want:
+            assert out[k].dtype == want[k].dtype, k
+            if k == 'tree_pos':
+                assert torch.equal(out[k][valid], want[k][valid]), k
+            else:
+                assert torch.equal(out[k], want[k]), k

@@ -33,6 +33,21 @@ inputs in turns — base, this tree, this tree, base — with 5 timings of
   {64, 128, 256, 512} (kernel alone and step, random trees) and the edit
   stream's warp and block variants at m in {64, 256, 512, 1024, 4096}
   (packed, e_pad 64), each at K*m = 786,432 nodes.
+- ``--single-row`` (that lane alone): the grid variants of the RGA order
+  and the edit stream against the base's one-block-per-row kernels.
+  First the floor under a grid round: an empty cooperative launch and
+  one empty grid barrier (``FLOOR_SYNCS`` in one launch), against an
+  empty plain launch from a graph and eagerly, at ``FLOOR_CTAS``. Then
+  the single-row inputs of the main paths (config 4's replay of
+  ``traces.gen_editing_trace(180000, seed=0)`` and its 60,001-change
+  bulk line, the long text's rebuild arm), each checked equal on both
+  sides and timed from a graph. Then the crossover tables, grid against
+  one block per row on random trees (8 rows tiled to K): the RGA order
+  at K in ``RGA_CROSS_K`` x m in ``RGA_CROSS_M``, the edit stream at K
+  in ``ES_CROSS_K`` x m in ``ES_CROSS_M``, packed (m <= 32,768) and
+  wide, e_pad 8 and m (10 launches a graph past 8M nodes). Run:
+  ``python3 tools/torch_kernel_ab.py --base _archive/base --single-row
+  --out chiprun_out/kernel_ab_single_row.json``.
 
 Prints one line per comparison (median, min and max of the 10 timings of
 each side) and writes them all, with the card's name and power limit, to
@@ -105,16 +120,18 @@ _TIMINGS = {'graph': 'device (CUDA graph)', 'eager': 'eager',
             'cold': 'device, one launch after an L2 flush'}
 
 
-def in_turns(label, a_name, a_fn, b_name, b_fn, timing, results):
+def in_turns(label, a_name, a_fn, b_name, b_fn, timing, results,
+             iters=50):
     """Time ``a_fn`` and ``b_fn`` in the order a, b, b, a; record and
     print each side's median and spread. ``timing`` 'graph': 5 replays
-    a turn of a CUDA graph of 50 calls; 'eager': 5 timings of 50 eager
-    calls; 'cold': :func:`cold_samples`."""
+    a turn of a CUDA graph of ``iters`` calls; 'eager': 5 timings of
+    ``iters`` eager calls; 'cold': :func:`cold_samples`."""
     samples = {a_name: [], b_name: []}
     for name, fn in ((a_name, a_fn), (b_name, b_fn), (b_name, b_fn),
                      (a_name, a_fn)):
         samples[name] += cold_samples(fn) if timing == 'cold' else \
-            chip_smoke._time_samples(fn, graph=timing == 'graph')
+            chip_smoke._time_samples(fn, iters=iters,
+                                     graph=timing == 'graph')
     entry = {name: _stats(t) for name, t in samples.items()}
     entry['timing'] = _TIMINGS[timing]
     results[label] = entry
@@ -243,7 +260,7 @@ def ab_flatmap(args, base, results):
         for na in CROSS_A:
             for s in sorted({max(n // 4, 1), n}):
                 if cuda_merge.warp_slice_bytes(n, s, na) > \
-                        cuda_merge._SMEM_LIMIT:
+                        cuda_build.SMEM_LIMIT:
                     continue
                 d = OPS // n
                 t = [torch.as_tensor(x).to(dev) for x in gen_docset_workload(
@@ -389,12 +406,271 @@ def ab_sequence(args, base, results):
                      results)
 
 
+# the grid variants' crossover tables: rows and widths (the RGA order's
+# wide widths on both sides of its shared-memory cap; the edit stream's
+# past its warp bound, the packed format up to its 15-bit indexes)
+RGA_CROSS_K = (1, 2, 8, 32, 132, 528)
+RGA_CROSS_M = (513, 4096, 8192, 10240, 12799, 12800, 49152, 196608)
+ES_CROSS_K = (1, 4, 32, 132, 528)
+ES_CROSS_M = (1024, 2048, 4096, 8192, 32768, 65536, 300000)
+# CTA counts of the barrier floor: one and two a SM, the config-4 RGA
+# grid's, and all resident (0)
+FLOOR_CTAS = (132, 264, 385, 0)
+FLOOR_SYNCS = 40
+
+
+def capture_single_rows(ticks=8):
+    """The single-row kernel inputs of the main paths, by launch key
+    (``chip_smoke._capturing``): config 4's replay
+    (``traces.gen_editing_trace(180000, seed=0)``) and its bulk line (the
+    first 60,001 changes through ``DeviceBackend.apply_changes``), and
+    the long text's rebuild arm (``_INDEX_MODE='rebuild'``,
+    ``_WINDOW_MODE='off'``: its first apply and ``ticks`` ticks)."""
+    import torch
+    from automerge_tpu_torch import traces
+    from automerge_tpu_torch.device import backend as DB
+    from automerge_tpu_torch.device import general as G
+    from automerge_tpu_torch.device.text_block import (TextBlock,
+                                                       replay_text_block)
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    trace = traces.gen_editing_trace(180000, seed=0)
+    applies, _ = chip_smoke.long_text_applies()
+    inputs = {}
+    saved = G._INDEX_MODE, G._WINDOW_MODE
+    with chip_smoke._capturing(inputs):
+        replay_text_block(TextBlock.from_changes(trace), device='cuda')
+        DB.apply_changes(DB.init(device='cuda'), trace[:60001])
+        try:
+            G._INDEX_MODE, G._WINDOW_MODE = 'rebuild', 'off'
+            ds = GeneralDocSet(1, device='cuda')
+            for ch in applies[:ticks + 1]:
+                ds.apply_changes('t', ch)
+                ds.last_patch.diffs(0)
+        finally:
+            G._INDEX_MODE, G._WINDOW_MODE = saved
+    torch.cuda.synchronize()
+    return inputs
+
+
+def _rga_sides(base, srt, flags, K, m):
+    """(the base's one-block-per-row kernel, this tree's grid variant) on
+    sorted planes ``srt`` and ``flags``, each on its own outputs and
+    scratch allocated once."""
+    import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_sequence
+    from automerge_tpu_torch.device import sequence
+    dev = srt[0].device
+    rounds = sequence._ceil_log2(m) + 1
+    b_fn = _bind(base, 'rga_order_launch', cuda_sequence._ARGTYPES)
+    n_fn = cuda_build.load('rga_order', 'rga_grid_launch',
+                           cuda_sequence._ARGTYPES)
+    words = cuda_build.load('rga_order', 'rga_grid_scratch_words',
+                            [ctypes.c_int] * 2, ctypes.c_longlong)(K, m)
+
+    def outs():
+        return [torch.empty((K, m), dtype=torch.int32, device=dev)
+                for _ in range(3)] + [torch.empty(K, dtype=torch.int32,
+                                                  device=dev)]
+    o_b, o_n = outs(), outs()
+    s_b = torch.empty((K, 4 * (m + 1)), dtype=torch.int32, device=dev) \
+        if not cuda_sequence.wide_fits_smem(m) else None
+    s_n = torch.empty(words, dtype=torch.int32, device=dev)
+    ins = _ptrs(srt) + _ptrs(flags)
+
+    def b():
+        _check(b_fn(*ins, *_ptrs(o_b), 0 if s_b is None else s_b.data_ptr(),
+                    K, m, rounds, _stream()))
+
+    def n():
+        _check(n_fn(*ins, *_ptrs(o_n), s_n.data_ptr(), K, m, rounds,
+                    _stream()))
+    return b, n, o_b, o_n
+
+
+def _es_sides(base, fmt, planes, t_u8, e_pad):
+    """(the base's block variant, this tree's grid variant) of the edit
+    stream on one input, each on its own outputs and scratch."""
+    import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_view
+    lead = planes if fmt == 'packed' else planes[0]
+    K, m = lead.shape
+    dev = lead.device
+    code = {'packed': cuda_view._FMT_PACKED, 'wide': cuda_view._FMT_WIDE}[fmt]
+    ptrs = [lead.data_ptr(), 0, 0, 0,
+            0 if fmt == 'packed' else planes[1].data_ptr()]
+    b_fn = _bind(base, 'edit_stream_launch', cuda_view._ARGTYPES)
+    n_fn = cuda_build.load('edit_stream', 'edit_stream_launch',
+                           cuda_view._ARGTYPES)
+    words = cuda_build.load('edit_stream', 'edit_stream_grid_scratch_words',
+                            [ctypes.c_int] * 2, ctypes.c_longlong)(K, m)
+
+    def outs():
+        return [torch.empty((K, e_pad), dtype=torch.int32, device=dev)
+                for _ in range(5)] + [torch.empty((K, 3), dtype=torch.int32,
+                                                  device=dev)]
+    o_b, o_n = outs(), outs()
+    s_b = torch.empty((K, 6 * ((m + 31) >> 5)), dtype=torch.int32,
+                      device=dev) if not cuda_view.block_fits_smem(m) \
+        else None
+    s_n = torch.empty(words, dtype=torch.int32, device=dev)
+    mb = t_u8.shape[1]
+
+    def b():
+        _check(b_fn(1, code, *ptrs, t_u8.data_ptr(), *_ptrs(o_b),
+                    0 if s_b is None else s_b.data_ptr(), K, m, mb, e_pad,
+                    _stream()))
+
+    def n():
+        _check(n_fn(2, code, *ptrs, t_u8.data_ptr(), *_ptrs(o_n),
+                    s_n.data_ptr(), K, m, mb, e_pad, _stream()))
+    return b, n, o_b, o_n
+
+
+def _same(o_b, o_n, what):
+    import torch
+    torch.cuda.synchronize()
+    for x, y in zip(o_b, o_n):
+        if not torch.equal(x, y):
+            raise AssertionError(f'{what}: the base and this tree differ')
+
+
+def _tile(t, K):
+    """Rows of ``t`` repeated to ``K`` rows."""
+    r = t.shape[0]
+    return t.repeat(((K + r - 1) // r,) + (1,) * (t.dim() - 1))[:K] \
+        .contiguous()
+
+
+def ab_single_row(args, base, results):
+    """The grid variants against the base's one-block-per-row kernels:
+    the floor under a round, the main paths' single-row inputs in turns,
+    then the crossover tables."""
+    import torch
+    from automerge_tpu_torch.device import cuda_build, sequence
+    dev = torch.device('cuda')
+    I32 = torch.int32
+
+    # the floor: an empty grid barrier, an empty graph-captured launch
+    probe = cuda_build.load('rga_order', 'grid_barrier_probe',
+                            [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    floor = {}
+    for ctas in FLOOR_CTAS:
+        t0 = chip_smoke._time_samples(
+            lambda: _check(probe(0, 1, ctas, _stream())), graph=True)
+        t1 = chip_smoke._time_samples(
+            lambda: _check(probe(FLOOR_SYNCS, 1, ctas, _stream())),
+            graph=True)
+        tp = chip_smoke._time_samples(
+            lambda: _check(probe(0, 0, ctas, _stream())), graph=True)
+        te = chip_smoke._time_samples(
+            lambda: [_check(probe(0, 0, ctas, _stream()))
+                     for _ in range(FLOOR_SYNCS)], iters=5)
+        row = {'coop_launch_ms': float(np.median(t0)),
+               'barrier_ms': float(np.median(t1) - np.median(t0))
+               / FLOOR_SYNCS,
+               'plain_launch_graph_ms': float(np.median(tp)),
+               'plain_launch_eager_ms': float(np.median(te)) / FLOOR_SYNCS}
+        floor[ctas or 'resident'] = row
+        print(f'floor, {ctas or "all resident"} CTAs of 512: an empty '
+              f'cooperative launch {row["coop_launch_ms"] * 1e3:.3f} us, '
+              f'one grid barrier {row["barrier_ms"] * 1e3:.3f} us (of '
+              f'{FLOOR_SYNCS} in one launch); an empty plain launch '
+              f'{row["plain_launch_graph_ms"] * 1e3:.3f} us from a graph, '
+              f'{row["plain_launch_eager_ms"] * 1e3:.3f} us eagerly (of '
+              f'{FLOOR_SYNCS} back to back)', flush=True)
+    results['grid floor'] = floor
+
+    # the main paths' single-row inputs, base against this tree
+    inputs = capture_single_rows()
+    seen = {}
+    for key, entries in sorted(inputs.items()):
+        for kind, a in entries:
+            if kind == 'rga' and a[0].shape[1] > 512:
+                K, m = a[0].shape
+                seen[('rga', K, m)] = a
+            elif kind == 'es' and a[0] in ('packed', 'wide'):
+                lead = a[1] if a[0] == 'packed' else a[1][0]
+                if lead.shape[1] > 512:
+                    seen[('es', a[0], *lead.shape, a[3])] = a
+    for what, a in sorted(seen.items(), key=lambda x: str(x[0])):
+        if what[0] == 'rga':
+            _, K, m = what
+            srt = [t.to(I32).contiguous() for t in sequence._child_sort(
+                a[0], a[1], a[2], a[4])]
+            flags = [t.to(torch.bool).contiguous() for t in a[3:]]
+            b, n, o_b, o_n = _rga_sides(base['rga_order'], srt, flags, K, m)
+            b(), n()
+            _same(o_b, o_n, f'rga K={K} m={m}')
+            in_turns(f'rga_order main-path input K={K} m={m}', 'base wide',
+                     b, 'this tree wide-grid', n, 'graph', results)
+        else:
+            fmt, planes, tb, e_pad = a
+            planes = planes.contiguous() if fmt == 'packed' else \
+                tuple(p.contiguous() for p in planes)
+            t_u8 = torch.as_tensor(tb).to(dev)
+            b, n, o_b, o_n = _es_sides(base['edit_stream'], fmt, planes,
+                                       t_u8, e_pad)
+            b(), n()
+            _same(o_b, o_n, f'edit_stream {what}')
+            _, _, K, m, _ = what
+            in_turns(f'edit_stream main-path input {fmt} K={K} m={m} '
+                     f'e_pad={e_pad}', 'base block', b, 'this tree grid',
+                     n, 'graph', results)
+    del inputs, seen
+
+    # the crossover tables: grid against one block per row
+    rng = np.random.default_rng(7)
+    for m in RGA_CROSS_M:
+        rows = [torch.as_tensor(p).to(dev)
+                for p in chip_smoke.random_trees(rng, 8, m)]
+        srt8 = [t.to(I32) for t in sequence._child_sort(
+            rows[0], rows[1], rows[2], rows[4])]
+        for K in RGA_CROSS_K:
+            srt = [_tile(t, K) for t in srt8]
+            flags = [_tile(t, K) for t in rows[3:]]
+            b, n, o_b, o_n = _rga_sides(base['rga_order'], srt, flags, K, m)
+            b(), n()
+            _same(o_b, o_n, f'rga K={K} m={m}')
+            in_turns(f'rga_order crossover K={K} m={m}', 'wide', b,
+                     'wide-grid', n, 'graph', results,
+                     iters=10 if K * m > 8_000_000 else 50)
+            del srt, flags, b, n, o_b, o_n
+        torch.cuda.empty_cache()
+    for m in ES_CROSS_M:
+        pv, nv, pi, ni, tb, packed = chip_smoke.random_planes(rng, 4, m)
+        t4 = torch.as_tensor(tb).to(dev)
+        fmts = {'wide': [torch.as_tensor(x).to(dev)
+                         for x in chip_smoke.wide_planes(pv, nv, pi, ni)]}
+        if m <= 32768:
+            fmts['packed'] = [torch.as_tensor(packed).to(dev)]
+        for fmt, p4 in fmts.items():
+            for K in ES_CROSS_K:
+                planes = [_tile(t, K) for t in p4]
+                planes = planes[0] if fmt == 'packed' else tuple(planes)
+                t_u8 = _tile(t4, K)
+                for e_pad in (8, m):
+                    b, n, o_b, o_n = _es_sides(base['edit_stream'], fmt,
+                                               planes, t_u8, e_pad)
+                    b(), n()
+                    _same(o_b, o_n, f'edit_stream {fmt} K={K} m={m}')
+                    in_turns(f'edit_stream crossover {fmt} K={K} m={m} '
+                             f'e_pad={e_pad}', 'block', b, 'grid', n,
+                             'graph', results,
+                             iters=10 if K * m > 8_000_000 else 50)
+                    del b, n, o_b, o_n
+                del planes, t_u8
+            torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--base', default=os.path.join(ROOT, '_archive', 'base'))
     ap.add_argument('--docs', type=int, default=10240)
     ap.add_argument('--kernels', nargs='+', choices=KERNELS,
                     default=list(KERNELS))
+    ap.add_argument('--single-row', action='store_true',
+                    help='only the single-row lane: the grid variants '
+                         'against the base\'s one-block-per-row kernels')
     ap.add_argument('--out', default=os.path.join(
         ROOT, 'automerge_tpu_torch', '_build', 'kernel_ab.json'))
     args = ap.parse_args()
@@ -405,13 +681,18 @@ def main():
     from automerge_tpu_torch.device import cuda_build
     card = chip_smoke._card_line()
     print(card, flush=True)
-    cuda_build.build_all(args.kernels, force=True)
-    base = build_base(args.base, args.kernels)
+    names = ['rga_order', 'edit_stream'] if args.single_row else \
+        args.kernels
+    cuda_build.build_all(names, force=True)
+    base = build_base(args.base, names)
     results = {'card': card, 'torch': torch.__version__,
                'cuda': torch.version.cuda}
-    if 'flatmap_resolve' in base:
+    if args.single_row:
+        ab_single_row(args, base, results)
+    elif 'flatmap_resolve' in base:
         ab_flatmap(args, base['flatmap_resolve'], results)
-    if 'rga_order' in base or 'edit_stream' in base:
+    if not args.single_row and ('rga_order' in base or
+                                'edit_stream' in base):
         ab_sequence(args, base, results)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as fh:
