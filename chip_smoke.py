@@ -86,12 +86,34 @@ exits non-zero without a result line):
    (the tick-1 documents above: the fused step and its RGA kernel); the
    documents must equal ``DeviceDocSet(device='cpu')`` on a seeded
    768-document subset and the host oracle ``DocSet`` on 64;
+   5b. the dense flat-map engine: ``gen_block_workload()`` (10,240
+   documents x 10 actors x 10 ops, 1,024,000 ops) into
+   ``DenseMapStore(device='cuda')``, p50 and p99 of 50 blocking applies
+   (``reset()`` before each), one more under ``torch.profiler`` (the
+   device's share), the planes and patch tensors bit-equal to a
+   ``device='cpu'`` store after the same block and the diffs on a
+   seeded subset; 8 successive blocks through ``apply_block_async`` +
+   ``drain`` (synced once) against the same stream applied
+   synchronously; a ``DenseDocSet`` of 1,024 documents synced over
+   ``BatchingConnection`` from a host-oracle ``DocSet``, its views
+   equal to the oracle's;
+   5c. serving, control, transport and the fleet simulator, every
+   node's store on the card: ``zipf`` at full scale (3 nodes, 1,024
+   documents, 10,240 load ops, wire and controller on) green, and the
+   flash crowd at full scale green with the controller and red without,
+   each with every node's views equal to ``run_oracle(schedule,
+   device='cpu')`` and equal state digests across nodes, ops/s and the
+   convergence p99; the flash crowd once more under ``torch.profiler``;
+   ``replay_schedule_over_sockets`` of the reconnect storm (smoke
+   scale) over loopback sockets through the fault-injecting proxies,
+   equal to the oracle with nothing quarantined or diverged; the RGA
+   kernel must launch;
 6. one more general tick under ``torch.profiler`` (it re-inserts
    elems the fleet already has, so it must fall back to the rebuild):
    device busy time against the tick's wall time (the idle share) and
    the kernels that take it;
 7. for every launch key (kernel, mode, variant) the main paths launched
-   (phases 4 to 5): every input the paths handed that launch, as
+   (phases 4 to 5c): every input the paths handed that launch, as
    they handed it over, through the dispatch (which must take exactly
    that launch) against the plain version, bit for bit; then, at the
    largest of those inputs, the kernel and the plain version of what it
@@ -1871,6 +1893,269 @@ def _kernel_row(key, n, entries, card):
             'other_variants_ms': {v: t[0] for v, t in t_extra.items()}}
 
 
+def _dense_path(card, iters=50, stream_k=8):
+    """Phase 5b: the dense flat-map engine at the north-star shape —
+    ``gen_block_workload()`` (10,240 documents x 10 actors x 10 ops,
+    1,024,000 ops) into ``DenseMapStore(device='cuda')``: ``iters``
+    blocking applies (``reset()`` before each, drained by
+    ``torch.cuda.synchronize``), p50 and p99; the planes bit-equal to a
+    ``device='cpu'`` store after the same block and the patch diffs
+    equal on a seeded subset; a stream of ``stream_k`` successive blocks
+    through ``apply_block_async`` + ``drain``, synced once, against the
+    same stream applied synchronously (equal planes); then one
+    ``DenseDocSet`` sync exchange over ``BatchingConnection`` at 1,024
+    documents, its views equal to the host-oracle ``DocSet``'s."""
+    import torch
+    import automerge_tpu_torch as am
+    from automerge_tpu_torch.device.dense_store import DenseMapStore
+    from automerge_tpu_torch.device.workloads import gen_block_workload
+    from automerge_tpu_torch.sync import (BatchingConnection, Connection,
+                                          DenseDocSet, DocSet)
+    from automerge_tpu_torch.utils.metrics import metrics
+
+    t0 = time.perf_counter()
+    block = gen_block_workload()
+    t_gen = time.perf_counter() - t0
+    kw = dict(key_capacity=64, actor_capacity=16)
+    torch.cuda.reset_peak_memory_stats()
+    store = DenseMapStore(block.n_docs, device='cuda', **kw)
+    t0 = time.perf_counter()
+    store.apply_block(block).block_until_ready()
+    t_first = (time.perf_counter() - t0) * 1e3
+    times, parts = [], []
+    for _ in range(iters):
+        store.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        patch, tm = store.apply_block(block, return_timing=True)
+        patch.block_until_ready()
+        times.append((time.perf_counter() - t0) * 1e3)
+        parts.append(tm)
+    p50, p99 = (float(np.percentile(times, q)) for q in (50, 99))
+    part_ms = {k: float(np.median([p[k] for p in parts])) * 1e3
+               for k in parts[0]}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f'dense ({card}): {block.n_ops} ops over {block.n_docs} docs '
+          f'(generated in {t_gen:.1f} s) into DenseMapStore(device='
+          f'\'cuda\'), planes 3 x {tuple(store.eseq.shape)} int32; first '
+          f'apply {t_first:.1f} ms; {iters} blocking applies: p50 '
+          f'{p50:.2f} ms, p99 {p99:.2f} ms, min {min(times):.2f} ms '
+          f'({block.n_ops / p50 * 1e3:.0f} ops/s at p50; medians: admit '
+          f'{part_ms["admit"]:.2f} + pack {part_ms["pack"]:.2f} + '
+          f'dispatch {part_ms["dispatch"]:.2f} ms, then the drain); peak '
+          f'device memory {peak:.1f} MiB', flush=True)
+
+    # one more blocking apply under torch.profiler: the device's share
+    store.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof = _profiled(lambda: store.apply_block(block).block_until_ready())
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, rows = _device_rows(prof, 'the dense apply')
+    print(f'profile (one dense apply under torch.profiler, {card}): wall '
+          f'{wall:.1f} ms, device busy {busy:.3f} ms, idle share '
+          f'{1 - busy / wall:.4f}', flush=True)
+    for key, ms, n in rows[:6]:
+        print(f'profile:   {ms:9.3f} ms  x{n:<5d} {key[:90]}', flush=True)
+
+    cpu = DenseMapStore(block.n_docs, device='cpu', **kw)
+    t0 = time.perf_counter()
+    cpatch = cpu.apply_block(block)
+    t_cpu = (time.perf_counter() - t0) * 1e3
+    for name in ('eseq', 'eval_', 'm'):
+        if not torch.equal(getattr(store, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f'dense plane {name}: cuda != cpu')
+    for name in ('fidx', 'winner_slot', 'winner_value', 'alive', 'values'):
+        if not torch.equal(getattr(patch, name).cpu(),
+                           getattr(cpatch, name)):
+            raise AssertionError(f'dense patch {name}: cuda != cpu')
+    sub = np.sort(np.random.default_rng(5).choice(block.n_docs, 512,
+                                                  replace=False))
+    for d in sub.tolist():
+        if patch.diffs(d) != cpatch.diffs(d):
+            raise AssertionError(f'dense doc {d}: cuda diffs != cpu diffs')
+    print(f'check: dense planes eseq/eval/m and the patch tensors bit-equal '
+          f'to a cpu store after the same block (cpu apply {t_cpu:.0f} '
+          f'ms); diffs equal on a seeded {len(sub)}-doc subset',
+          flush=True)
+
+    def stream():
+        return [gen_block_workload(seed=k, seq0=k + 1)
+                for k in range(stream_k)]
+
+    def run_stream(blocks, pipelined):
+        store.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blk in blocks:
+            if pipelined:
+                last = store.apply_block_async(blk)
+            else:
+                last = store.apply_block(blk)
+                last.block_until_ready()
+        last.block_until_ready()
+        store.drain()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(blocks)
+
+    t_sync = run_stream(stream(), False)
+    sync_planes = [getattr(store, n).clone() for n in ('eseq', 'eval_', 'm')]
+    t_pipe = run_stream(stream(), True)
+    store.close()
+    for name, want in zip(('eseq', 'eval_', 'm'), sync_planes):
+        if not torch.equal(getattr(store, name), want):
+            raise AssertionError(f'dense stream plane {name}: pipelined '
+                                 f'!= synchronous')
+    print(f'dense stream ({card}): {stream_k} successive 1M-op blocks, '
+          f'synchronous {t_sync:.2f} ms a block, pipelined '
+          f'(apply_block_async + drain, synced once) {t_pipe:.2f} ms a '
+          f'block; final planes equal', flush=True)
+
+    # one DenseDocSet sync exchange (bench.py's dense sync shape)
+    n = 1024
+    src = DocSet()
+    for i in range(n):
+        doc = am.Frontend.init({'actorId': f'actor-{i:05d}',
+                                'backend': am.Backend})
+        src.set_doc(f'doc{i}', am.change(
+            doc, lambda d, i=i: d.update({'id': i, 'n': i * 2})))
+    dst = DenseDocSet(n, key_capacity=8, actor_capacity=4, device='cuda')
+    msgs_a, msgs_b = [], []
+    ca = Connection(src, msgs_a.append)
+    cb = BatchingConnection(dst, msgs_b.append)
+    batches0 = metrics.counters.get('dense_batches', 0)
+    n_msgs = 0
+    t0 = time.perf_counter()
+    ca.open()
+    cb.open()
+    while msgs_a or msgs_b:
+        batch, msgs_a[:] = msgs_a[:], []
+        for m in batch:
+            n_msgs += 1
+            cb.receive_msg(m)
+        cb.flush()
+        batch, msgs_b[:] = msgs_b[:], []
+        for m in batch:
+            n_msgs += 1
+            ca.receive_msg(m)
+    torch.cuda.synchronize()
+    t_sync_ms = (time.perf_counter() - t0) * 1e3
+    for i in range(n):
+        want = dict(src.get_doc(f'doc{i}'))
+        if dst.materialize(f'doc{i}') != want:
+            raise AssertionError(f'dense doc set doc{i}: view != host '
+                                 f'oracle')
+    print(f'dense doc set ({card}): {n} documents synced over '
+          f'BatchingConnection in {t_sync_ms:.1f} ms, {n_msgs} messages, '
+          f'{metrics.counters.get("dense_batches", 0) - batches0} device '
+          f'applies; every view equal to the host-oracle DocSet',
+          flush=True)
+
+
+# the fault mix of the socket replay (tests/test_socket_chaos.py)
+_SOCKET_CHAOS = {'drop': 0.05, 'dup': 0.05, 'cut': 0.01, 'corrupt': 0.01}
+
+
+def _fleet_path(card, inputs):
+    """Phase 5c: serving, control, transport and the fleet simulator on
+    the card. (a) ``zipf`` at its full scale (3 nodes, 1,024 documents,
+    10,240 load ops, the wire on, the controller on): green, every
+    node's views equal to ``run_oracle(schedule, device='cpu')`` (the
+    plain path), state digests equal across nodes; (b) ``flash_crowd``
+    at full scale with the controller on (green) and off (red), views
+    equal to the CPU oracle's; (c) ``replay_schedule_over_sockets`` of
+    ``reconnect_storm`` at its smoke scale over loopback sockets through
+    the chaos proxies, equal to the oracle, nothing quarantined or
+    diverged. Every node's store is on the card; the RGA kernel's
+    launches are counted and their inputs captured into ``inputs``.
+    Returns the launch counts by launch key."""
+    import torch
+    from automerge_tpu_torch import fleetsim
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    from automerge_tpu_torch.sync.chaos import replay_schedule_over_sockets
+
+    runs = (('zipf', 'full', True, 'green'),
+            ('flash_crowd', 'full', True, 'green'),
+            ('flash_crowd', 'full', False, 'red'))
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        for name, scale, controller, verdict in runs:
+            sched = fleetsim.build_schedule(name, scale=scale)
+            t0 = time.perf_counter()
+            r = fleetsim.FleetSim(schedule=sched, controller=controller,
+                                  collect_views=True, device='cuda').run()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            oracle = fleetsim.run_oracle(sched, device='cpu')
+            t_oracle = time.perf_counter() - t0
+            if len(set(oracle)) != 1:
+                raise AssertionError(f'{name}: the cpu oracle diverged')
+            if any(v != oracle[0] for v in r['views']):
+                raise AssertionError(f'{name} (controller {controller}): '
+                                     f'cuda views != the cpu oracle')
+            if r['verdict'] != verdict:
+                raise AssertionError(
+                    f'{name} (controller {controller}): verdict '
+                    f'{r["verdict"]}, want {verdict}: '
+                    f'{[k for k, c in r["checks"].items() if not c["ok"]]}')
+            if not r['checks']['replicas_digest_equal']['ok'] or \
+                    not r['state_digests']:
+                raise AssertionError(f'{name}: node digests differ')
+            print(f'fleet {name} {scale} ({card}, controller '
+                  f'{"on" if controller else "off"}): {r["verdict"]}; '
+                  f'{sched["spec"]["n_nodes"]} nodes x '
+                  f'{sched["spec"]["n_docs"]} docs, {r["n_ops"]} ops in '
+                  f'{r["wall_s"]} s of ticks ({t_run:.1f} s with set-up), '
+                  f'{r["ops_per_sec"]} ops/s, convergence p99 '
+                  f'{r["convergence_ms_p99"]} ms, peak memory pressure '
+                  f'{r["peak_memory_pressure"]}, control '
+                  f'{r["control_actions"]}; views of every node == the cpu '
+                  f'oracle (run_oracle {t_oracle:.1f} s), state digests '
+                  f'equal across nodes', flush=True)
+        # the flash crowd once more under torch.profiler: the device's
+        # share of a serving fleet's run
+        sched = fleetsim.build_schedule('flash_crowd', scale='full')
+        t0 = time.perf_counter()
+        prof = _profiled(lambda: fleetsim.FleetSim(
+            schedule=sched, device='cuda').run())
+        wall = (time.perf_counter() - t0) * 1e3
+        busy, rows = _device_rows(prof, 'the flash crowd')
+        print(f'profile (flash_crowd full, controller on, under '
+              f'torch.profiler, {card}): wall {wall:.1f} ms, device busy '
+              f'{busy:.2f} ms, idle share {1 - busy / wall:.4f}',
+              flush=True)
+        for key, ms, n in rows[:6]:
+            print(f'profile:   {ms:9.3f} ms  x{n:<5d} {key[:90]}',
+                  flush=True)
+        # seed 5: the reference's own socket-replay test of this scenario
+        sched = fleetsim.build_schedule('reconnect_storm', seed=5,
+                                        scale='smoke')
+        t0 = time.perf_counter()
+        out = replay_schedule_over_sockets(sched, chaos=_SOCKET_CHAOS,
+                                           device='cuda')
+        t_sock = time.perf_counter() - t0
+        oracle = fleetsim.run_oracle(sched, device='cpu')
+        if out['views'] != oracle:
+            raise AssertionError('socket replay views != the cpu oracle')
+        if out['quarantined'] or out['diverged']:
+            raise AssertionError(f'socket replay quarantined '
+                                 f'{out["quarantined"]}, diverged '
+                                 f'{out["diverged"]}')
+        print(f'fleet reconnect_storm smoke over sockets ({card}): '
+              f'{sched["spec"]["n_nodes"]} nodes, chaos {_SOCKET_CHAOS}, '
+              f'converged in {out["ticks"]} ticks ({t_sock:.1f} s), views '
+              f'== the cpu oracle, 0 quarantined, 0 diverged', flush=True)
+    counts = _launch_counts()
+    rga = {k: n for k, n in counts.items() if k[0] == 'rga_order'}
+    if not rga:
+        raise AssertionError('the fleet path launched no RGA kernel')
+    print(f'fleet launches: {counts} (RGA {sum(rga.values())})',
+          flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2086,13 +2371,18 @@ def main():
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
+    # ---- 5b. the dense engine's 1M-op block; 5c. the fleet ----
+    _dense_path(card)
+    fleet_counts = _fleet_path(card, inputs)
+
     # ---- 6. device busy vs wall ----
     _profile_tick(gds, ids, n_docs, list_ops, card)
 
     # ---- 7. the kernels at the main paths' inputs ----
     launched = {}
     for counts in (main_counts, long_counts['launches'], wire_counts,
-                   text_counts, facade_counts, dds_counts):
+                   text_counts, facade_counts, dds_counts,
+                   fleet_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
     kernels = [_kernel_row(key, n, inputs.get(key), card)

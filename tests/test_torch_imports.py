@@ -77,6 +77,14 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         'import automerge_tpu_torch.sync.watchable_doc\n'
         'import automerge_tpu_torch.sync.connection\n'
         'import automerge_tpu_torch.sync.resilient\n'
+        'import automerge_tpu_torch.telemetry\n'
+        'import automerge_tpu_torch.fleetsim\n'
+        'import automerge_tpu_torch.sync.transport\n'
+        'import automerge_tpu_torch.sync.serving\n'
+        'import automerge_tpu_torch.sync.control\n'
+        'import automerge_tpu_torch.sync.chaos\n'
+        'import automerge_tpu_torch.sync.dense_doc_set\n'
+        'import automerge_tpu_torch.device.dense_store\n'
         'new = set(sys.modules) - before\n'
         'print(sorted(m for m in new if m == "jax" or '
         'm.startswith("jax.") or m == "automerge_tpu" or '
@@ -109,6 +117,17 @@ def test_entry_points_raise_without_cuda():
         device_backend.init()
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         DeviceDocSet()
+    from automerge_tpu_torch import fleetsim
+    from automerge_tpu_torch.device.dense_store import DenseMapStore
+    from automerge_tpu_torch.sync import DenseDocSet, ServingDocSet
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        DenseMapStore(4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        DenseDocSet(4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        fleetsim.FleetSim('zipf')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        ServingDocSet.recover(os.path.join(ROOT, 'no-such-dir'))
 
 
 def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
@@ -156,3 +175,9 @@ def test_unported_paths_raise_not_implemented():
     general.close_general(ds.store)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         Options().make_mesh()
+    from automerge_tpu_torch import fleetsim
+    from automerge_tpu_torch.device.dense_store import DenseMapStore
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        DenseMapStore(2, device='cpu', mesh=object())
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        fleetsim.run_scenario('hot_shard', device='cpu')
