@@ -132,17 +132,17 @@ class Options:
             return half
         return p
 
-    def make_mesh(self):
-        """Document-axis mesh (the mesh layer is not ported yet)."""
-        raise NotImplementedError(
-            'the mesh layer (parallel/mesh.py) is not ported yet: '
-            'ROADMAP A.10')
+    def make_mesh(self, device=None):
+        """Document-axis mesh of `n_devices` (parallel.mesh.make_mesh)
+        over the visible cards, or logical CPU entries for
+        ``device='cpu'``."""
+        from .parallel.mesh import make_mesh
+        return make_mesh(n_devices=self.n_devices, device=device)
 
-    def make_peer_mesh(self):
-        """Peer-axis mesh (the mesh layer is not ported yet)."""
-        raise NotImplementedError(
-            'the mesh layer (parallel/ici_sync.py) is not ported yet: '
-            'ROADMAP A.10')
+    def make_peer_mesh(self, device=None):
+        """Peer-axis mesh for replica sync (parallel.ici_sync)."""
+        from .parallel.ici_sync import make_peer_mesh
+        return make_peer_mesh(n_peers=self.n_devices, device=device)
 
     def with_(self, **kw):
         """Functional update (the dataclass is frozen)."""

@@ -56,7 +56,10 @@ padding rows taking the last change as the reference's does; argmax
 keeps the FIRST maximum; every prefix sum is pinned to int32. The
 store's ``device`` defaults to the card (:func:`~..config.
 resolve_device`); the snapshot format is the reference's, so snapshots
-cross-load between the two packages.
+cross-load between the two packages. With a ``mesh`` the planes are
+doc-major row chunks, one per mesh entry on that entry's device, and
+each apply routes the block's changes by document and runs the same
+steps per shard on its own rows (bit-equal to the unsharded store).
 """
 
 import numpy as np
@@ -262,7 +265,8 @@ def _note_dense_dispatch(store, args, statics):
     from . import profiler as _profiler
     _profiler.note_dispatch(
         'dense.apply_extract',
-        (store.eseq.shape, args[0].shape, args[7].shape,
+        ((store.n_fields, store.actor_capacity), args[0].shape,
+         args[7].shape,
          args[4].shape, tuple(sorted(statics.items()))),
         rows=args[7].shape[0])
 
@@ -357,24 +361,44 @@ class DenseMapStore:
 
     ``device`` — where the planes live (:func:`~..config.
     resolve_device`: None is the card, and raises without one; pass
-    ``'cpu'`` for the host). A ``mesh`` (the reference's document-axis
-    sharding) needs the mesh layer, which is not ported yet: it raises.
+    ``'cpu'`` for the host).
+
+    With a ``mesh`` (a 1-D document-axis mesh,
+    :func:`~..parallel.mesh.make_mesh`), the planes live sharded across
+    its entries — rows are doc-major, so each entry holds whole
+    documents' fields (:func:`~..parallel.mesh.doc_sharding`) and the
+    apply scatters stay shard-local (dp for the dense engine).
+    ``n_docs`` must divide evenly by the mesh size (doc-locality is the
+    checked invariant). The patch tensors gather onto the mesh's first
+    device, which is also ``device``.
     """
 
     def __init__(self, n_docs, key_capacity=64, actor_capacity=16,
                  options=None, mesh=None, retain_log=True, device=None):
         from .engine import as_options
-        if mesh is not None:
-            raise NotImplementedError(
-                'the mesh layer (parallel/mesh.py) is not ported yet: '
-                'ROADMAP A.10')
-        self.device = resolve_device(device)
         self.options = as_options(options)
         self.n_docs = n_docs
         self.key_capacity = key_capacity
         self.actor_capacity = actor_capacity
         self.n_fields = n_docs * key_capacity
         self.retain_log = retain_log
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._shard_devices = [self.device]
+            self._doc_ranges = [(0, n_docs)]
+        else:
+            from ..parallel.mesh import doc_sharding
+            # whole documents per shard (doc-locality: apply scatters
+            # stay shard-local), so the DOC count must divide
+            if n_docs % mesh.devices.size:
+                raise ValueError(
+                    f'{n_docs} docs do not divide over '
+                    f'{mesh.devices.size} devices')
+            self.device = mesh.devices[0]
+            self._shard_devices = list(mesh.devices)
+            self._doc_ranges = doc_sharding(mesh, n_docs)
+        self._rank_parts = None       # per-shard rows of the rank plane
         # interning/clock/log/queue
         self.host = _blocks.BlockStore(n_docs, retain_log=retain_log,
                                        device=self.device)
@@ -399,12 +423,38 @@ class DenseMapStore:
         self._rank_actors = -1    # actor-table size the plane was built at
 
     def _alloc_planes(self):
-        shape = (self.n_fields, self.actor_capacity)
-        dev = self.device
-        self.eseq = torch.zeros(shape, dtype=_I32, device=dev)
-        self.eval_ = torch.full(shape, int(_VAL_NONE), dtype=_I32,
-                                device=dev)
-        self.m = torch.full(shape, -1, dtype=_I32, device=dev)
+        # one [eseq, eval_, m] triple per shard (one shard without a
+        # mesh), each on its shard's device
+        kc, a = self.key_capacity, self.actor_capacity
+        self._planes = []
+        for (lo, hi), dev in zip(self._doc_ranges, self._shard_devices):
+            shape = ((hi - lo) * kc, a)
+            self._planes.append([
+                torch.zeros(shape, dtype=_I32, device=dev),
+                torch.full(shape, int(_VAL_NONE), dtype=_I32, device=dev),
+                torch.full(shape, -1, dtype=_I32, device=dev)])
+
+    def _plane(k):
+        """Whole-store view of plane ``k`` (the shards' rows gathered
+        onto ``device`` when sharded); assigning splits a whole plane
+        back into the shards' rows."""
+        def get(self):
+            parts = [p[k] for p in self._planes]
+            if len(parts) == 1:
+                return parts[0]
+            return torch.cat([t.to(self.device) for t in parts])
+
+        def put(self, value):
+            kc = self.key_capacity
+            for p, (lo, hi), dev in zip(self._planes, self._doc_ranges,
+                                        self._shard_devices):
+                p[k] = value[lo * kc:hi * kc].to(dev)
+        return property(get, put)
+
+    eseq = _plane(0)
+    eval_ = _plane(1)
+    m = _plane(2)
+    del _plane
 
     def reset(self):
         try:
@@ -476,17 +526,64 @@ class DenseMapStore:
                 self.slot_actor[filled]]
             self._rank_plane = _dev(ranks.astype(np.int32), self.device)
             self._rank_actors = n_act
+            self._rank_parts = None
         return self._rank_plane
+
+    def _rank_plane_parts(self):
+        """Each shard's rows of the rank plane, on its device."""
+        plane = self._rank_plane_dev()
+        if self._rank_parts is None:
+            self._rank_parts = [plane[lo:hi].to(dev) for (lo, hi), dev in
+                                zip(self._doc_ranges, self._shard_devices)]
+        return self._rank_parts
+
+    def _gather_patch(self, parts, n_touched):
+        """The unsharded patch tensors from the shards' extracts: each
+        shard's touched rows (fidx lifted to store rows) in shard order,
+        then the padding rows, which shard 0 extracted (they read row
+        0 of the store, as the unsharded extract's padding does)."""
+        kc = self.key_capacity
+        heads, tail = [], None
+        for s, (out, t, (lo, _)) in enumerate(zip(parts, n_touched,
+                                                  self._doc_ranges)):
+            out = [x.to(self.device) for x in out]
+            fidx = out[0]
+            out[0] = torch.where(fidx >= 0, fidx + lo * kc, fidx) \
+                .to(_I32)
+            heads.append([x[:t] for x in out])
+            if s == 0:
+                tail = [x[t:] for x in out]
+        return tuple(torch.cat([h[i] for h in heads] + [tail[i]])
+                     for i in range(5))
+
+    def _shard_f_pads(self, mask, f_pad):
+        """Each shard's touched count and its extract size: its own
+        count, shard 0's also holding the padding rows."""
+        kc = self.key_capacity
+        counts = [int(mask[lo * kc:hi * kc].sum())
+                  for lo, hi in self._doc_ranges]
+        sizes = list(counts)
+        sizes[0] += f_pad - sum(counts)
+        return counts, sizes
 
     def _extract(self, mask):
         """Device patch extraction over a boolean field mask (shared by
         apply_block and extract_all)."""
         self.drain()
         f_pad = self.options.pad_segments(max(int(mask.sum()), 1))
-        fidx, w_slot, w_value, alive, values = _extract_kernel(
-            self.eseq, self.eval_, self.m, self._rank_plane_dev(),
-            self.key_capacity, _dev(mask, self.device), f_pad=f_pad)
-        return DensePatch(self, fidx, w_slot, w_value, alive, values)
+        if self.mesh is None:
+            return DensePatch(self, *_extract_kernel(
+                self.eseq, self.eval_, self.m, self._rank_plane_dev(),
+                self.key_capacity, _dev(mask, self.device), f_pad=f_pad))
+        kc = self.key_capacity
+        counts, sizes = self._shard_f_pads(mask, f_pad)
+        parts = [_extract_kernel(*p, rank, kc,
+                                 _dev(mask[lo * kc:hi * kc], p[0].device),
+                                 f_pad=size)
+                 for p, rank, (lo, hi), size in zip(
+                     self._planes, self._rank_plane_parts(),
+                     self._doc_ranges, sizes)]
+        return DensePatch(self, *self._gather_patch(parts, counts))
 
     def extract_all(self):
         """Patch covering every populated field — materializes the whole
@@ -534,8 +631,8 @@ class DenseMapStore:
         package's: the format is shared) onto ``device``.
 
         Meshes are runtime topology, not state, so the caller resupplies
-        ``mesh`` to resume sharded (which raises until the mesh layer
-        is ported)."""
+        ``mesh`` to resume sharded (a store sized for a sharded
+        footprint should not be resumed on one device)."""
         import io
         import json
         with np.load(io.BytesIO(data)) as z:
@@ -784,6 +881,8 @@ class DenseMapStore:
         fused apply + extract, swap the planes in. Returns the patch
         tensors."""
         _note_dense_dispatch(self, args, statics)
+        if self.mesh is not None:
+            return self._dispatch_sharded(args, statics)
         dev = self.device
         # host columns to the device; the scalars stay Python ints and
         # the rank plane is already resident
@@ -795,6 +894,68 @@ class DenseMapStore:
                                     *shipped, **statics)
         self.eseq, self.eval_, self.m = out[:3]
         return out[3:]
+
+    def _dispatch_sharded(self, args, statics):
+        """The device phase over the mesh: the block's changes route by
+        document to the shard holding it (their ops, closure entries,
+        touched fields and rank rows with them, in local coordinates),
+        each shard runs the fused apply + extract on its own rows, and
+        the patch gathers as :meth:`_gather_patch` lays it out."""
+        (change_doc, change_actor, change_seq, op_counts, coo_row,
+         coo_col, coo_val, op_key, isdel_bits, op_value, n_ops, kc,
+         v_base, _, touched_bits) = args
+        n_ops, kc, v_base = int(n_ops), int(kc), int(v_base)
+        c_pad, n_pad = len(change_doc), len(op_key)
+        isdel = np.unpackbits(isdel_bits)[:n_pad].astype(bool)
+        if statics['seq_values']:
+            # the value refs the kernel would rebuild, made explicit so
+            # each shard's subsequence keeps its global refs
+            sets = (np.arange(n_pad) < n_ops) & ~isdel
+            op_value = np.where(sets, v_base + np.cumsum(sets) - 1, -1)
+        op_value = np.asarray(op_value, np.int32)
+        touched = np.unpackbits(touched_bits)[:self.n_fields].astype(bool)
+        counts, sizes = self._shard_f_pads(touched, statics['f_pad'])
+        op_chg = np.repeat(np.arange(c_pad), op_counts.astype(np.int64))
+        parts = []
+        for s, ((lo, hi), p, rank) in enumerate(zip(
+                self._doc_ranges, self._planes, self._rank_plane_parts())):
+            dev = p[0].device
+            doc = change_doc.astype(np.int64)
+            sel = np.flatnonzero((doc >= lo) & (doc < hi))
+            local = np.full(c_pad + 1, -1, np.int64)   # change -> local
+            local[sel] = np.arange(len(sel))
+            ops = np.flatnonzero(local[op_chg] >= 0)
+            n_c, n_o = max(len(sel), 1), len(ops)
+            c_row = local[np.minimum(coo_row.astype(np.int64), c_pad)]
+            keep = c_row >= 0
+            # padded closure triples point past the last change (dropped)
+            c_row = np.concatenate([c_row[keep], [n_c]]).astype(np.int32)
+            c_col = np.concatenate([coo_col[keep], [0]]).astype(np.int32)
+            c_val = np.concatenate([coo_val[keep], [0]]).astype(np.int32)
+            o_pad = max(n_o, 1)
+
+            def put(a, idx, n, dtype):
+                out = np.zeros(n, dtype)
+                out[:len(idx)] = a[idx]
+                return out
+            cols = (put(change_doc.astype(np.int64) - lo, sel, n_c,
+                        np.int32),
+                    put(change_actor, sel, n_c, np.int32),
+                    put(change_seq, sel, n_c, np.int32),
+                    put(op_counts, sel, n_c, np.int32),
+                    c_row, c_col, c_val,
+                    put(op_key, ops, o_pad, np.int32),
+                    np.packbits(put(isdel, ops, o_pad, bool)),
+                    put(op_value, ops, o_pad, np.int32))
+            f_lo, f_hi = lo * kc, hi * kc
+            out = _apply_extract_kernel(
+                *p, *(_dev(c, dev) for c in cols), n_o, kc, 0, rank,
+                _dev(np.packbits(touched[f_lo:f_hi]), dev),
+                n_fields=f_hi - f_lo, n_actors=statics['n_actors'],
+                seq_values=False, f_pad=sizes[s])
+            p[:] = out[:3]
+            parts.append(out[3:])
+        return self._gather_patch(parts, counts)
 
     def apply_block(self, block, return_timing=False):
         """Apply a :class:`~.blocks.ChangeBlock`; returns a

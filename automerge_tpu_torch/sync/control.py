@@ -53,8 +53,8 @@ Every action that DOES fire is a traced ``control.*`` span, a
 controller is as observable as the signals it consumes.
 
 The PyTorch port's copy of ``automerge_tpu/sync/control.py``. The
-placement knob acts only on a sharded fleet, which needs the mesh layer
-(not ported yet), so it is never reached in the port today.
+placement knob acts on a sharded fleet
+(:class:`~.sharded.ShardedGeneralDocSet`, the ``hot_shard`` scenario).
 """
 
 from ..utils.metrics import metrics

@@ -108,12 +108,35 @@ exits non-zero without a result line):
    scale) over loopback sockets through the fault-injecting proxies,
    equal to the oracle with nothing quarantined or diverged; the RGA
    kernel must launch;
+   5d. the mesh layer over a 4-entry mesh, entry i on ``cuda:(i %
+   device_count)`` (``make_mesh()``'s card count printed): (a) the
+   collectives against numpy; (b) config 5 sharded —
+   ``ShardedGeneralDocSet(10240, n_shards=4)`` takes phase 4's two
+   ticks, each shard's patch diffs for the seeded 768 documents equal
+   phase 4's, ``materialize_all`` and every per-doc digest equal the
+   unsharded fleet's, then 1,024 documents migrate (digest-verified)
+   and the views stay; each tick's apply time beside phase 4's; (c)
+   ``sharded_step_from_capture`` of a captured tick 1 bit-equal to the
+   fused outputs (the JAX package's multichip gate); (d)
+   ``ShardedDocSetEngine`` on phase 5's map-only fleet (the flat-map
+   kernel at D = 2,560 a shard) equal to ``batch_merge_docs``, its
+   kernel outputs and stats equal to a CPU mesh's; (e) replica sync on
+   a 4-peer mesh, 16,384 ops a peer over 16 actors and 4,096 keys: the
+   all-gather and ring rounds equal a CPU run, delta sync (all-gather
+   and ring, windows 64 and 1,024) ending in a round that ships 0 with
+   every peer resolving like the union; (f) ``hot_shard`` at full scale
+   green with its controller and red without, views equal to the CPU
+   oracle; (g) the 1M-op dense block into ``DenseMapStore(mesh=)``,
+   planes and patch tensors bit-equal to an unsharded card store, the
+   p50 of 10 applies beside 5b's; (h) the JAX package's scaling lane
+   (``bench.py:1400``): 4,096 documents, 128 single-doc mid-list
+   inserts at 1 and 4 shards, request p50 and p99;
 6. one more general tick under ``torch.profiler`` (it re-inserts
    elems the fleet already has, so it must fall back to the rebuild):
    device busy time against the tick's wall time (the idle share) and
    the kernels that take it;
 7. for every launch key (kernel, mode, variant) the main paths launched
-   (phases 4 to 5c): every input the paths handed that launch, as
+   (phases 4 to 5d): every input the paths handed that launch, as
    they handed it over, through the dispatch (which must take exactly
    that launch) against the plain version, bit for bit; then, at the
    largest of those inputs, the kernel and the plain version of what it
@@ -1904,7 +1927,8 @@ def _dense_path(card, iters=50, stream_k=8):
     through ``apply_block_async`` + ``drain``, synced once, against the
     same stream applied synchronously (equal planes); then one
     ``DenseDocSet`` sync exchange over ``BatchingConnection`` at 1,024
-    documents, its views equal to the host-oracle ``DocSet``'s."""
+    documents, its views equal to the host-oracle ``DocSet``'s. Returns
+    the p50 of the blocking applies, in ms."""
     import torch
     import automerge_tpu_torch as am
     from automerge_tpu_torch.device.dense_store import DenseMapStore
@@ -2050,6 +2074,7 @@ def _dense_path(card, iters=50, stream_k=8):
           f'{metrics.counters.get("dense_batches", 0) - batches0} device '
           f'applies; every view equal to the host-oracle DocSet',
           flush=True)
+    return p50
 
 
 # the fault mix of the socket replay (tests/test_socket_chaos.py)
@@ -2154,6 +2179,533 @@ def _fleet_path(card, inputs):
     print(f'fleet launches: {counts} (RGA {sum(rga.values())})',
           flush=True)
     return counts
+
+
+# ---- phase 5d: the mesh layer ----------------------------------------------
+
+
+def mesh_of(dev, n=4):
+    """The smoke's 4-entry mesh over the visible devices: entry i on
+    ``cuda:(i % device_count)`` (``dev`` 'cpu': logical CPU entries)."""
+    import torch
+    from automerge_tpu_torch.parallel.mesh import make_mesh
+    if torch.device(dev).type == 'cpu':
+        return make_mesh(n, device='cpu')
+    count = torch.cuda.device_count()
+    return make_mesh(devices=[torch.device('cuda', i % count)
+                              for i in range(n)])
+
+
+def _sync_all(dev):
+    import torch
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+class _MeshCounts:
+    """Phase 5d's launch counts: each part's drive runs with every
+    counter set to 0 just before it and read just after, its kernel
+    inputs captured into ``inputs``; the comparisons run outside."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+        self.counts = {}
+
+    @contextlib.contextmanager
+    def drive(self, what, need=()):
+        from automerge_tpu_torch.device import (cuda_merge, cuda_sequence,
+                                                cuda_view)
+        _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+        with _capturing(self.inputs):
+            yield
+        got = _launch_counts()
+        for kernel in need:
+            if not any(k[0] == kernel for k in got):
+                raise AssertionError(f'{what} did not launch {kernel}')
+        for k, n in got.items():
+            self.counts[k] = self.counts.get(k, 0) + n
+
+
+def _mesh_collectives(mesh, card):
+    """5d(a): psum, pmax, all_gather (untiled and tiled) and ppermute on
+    ``mesh`` against numpy, bit for bit."""
+    import torch
+    from automerge_tpu_torch.parallel import mesh as M
+    rng = np.random.default_rng(41)
+    n = mesh.devices.size
+    arr = rng.integers(-2**20, 2**20, size=(n, 1024, 16)).astype(np.int32)
+    xs = [torch.as_tensor(a).to(d) for a, d in zip(arr, mesh.devices)]
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    checks = (('psum', M.psum(xs), [arr.sum(axis=0, dtype=np.int32)] * n),
+              ('pmax', M.pmax(xs), [arr.max(axis=0)] * n),
+              ('all_gather', M.all_gather(xs), [arr] * n),
+              ('all_gather tiled', M.all_gather(xs, tiled=True),
+               [arr.reshape(-1, 16)] * n),
+              ('ppermute', M.ppermute(xs, ring),
+               [arr[(i - 1) % n] for i in range(n)]))
+    for name, got, want in checks:
+        for g, w, d in zip(got, want, mesh.devices):
+            if g.device != d or g.dtype != torch.int32 or \
+                    not np.array_equal(g.cpu().numpy(), w):
+                raise AssertionError(f'mesh collective {name} != numpy')
+    print(f'mesh (a) ({card}): psum, pmax, all_gather (untiled, tiled) '
+          f'and ppermute over {n} entries {[str(d) for d in mesh.devices]}'
+          f' of [1024, 16] int32 shards == numpy, bit for bit', flush=True)
+
+
+def _mesh_fleet(mesh, card, counts, ticks, ids, plain, views, diffs, sub,
+                apply_ms, dev='cuda', n_migrate=1024):
+    """5d(b): config 5 sharded — ``ShardedGeneralDocSet(n, n_shards=4,
+    mesh=mesh)`` takes the general ticks through ``apply_changes_batch``;
+    each shard's ``last_patch`` diffs for ``sub`` equal the unsharded
+    fleet's (``diffs``), ``materialize_all`` its views and the per-doc
+    digests its digests; then ``n_migrate`` documents migrate with
+    digest verification and the views stay as they were."""
+    from automerge_tpu_torch.sync.sharded import ShardedGeneralDocSet
+    n_docs = len(ids)
+    fleet = ShardedGeneralDocSet(n_docs, n_shards=4, mesh=mesh)
+    for k, batch in enumerate(ticks):
+        with counts.drive(f'sharded tick {k + 1}',
+                          need=('rga_order', 'edit_stream')):
+            t0 = time.perf_counter()
+            fleet.apply_changes_batch({ids[d]: batch[d]
+                                       for d in range(n_docs)})
+            _sync_all(dev)
+            t_apply = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            got = {}
+            for d in sub:
+                shard = fleet.shards[fleet.shard_of(ids[d])]
+                got[ids[d]] = shard.last_patch.diffs(shard.id_of[ids[d]])
+            t_read = (time.perf_counter() - t0) * 1e3
+        bad = [i for i in got if got[i] != diffs[k][i]]
+        if bad:
+            raise AssertionError(f'sharded tick {k + 1}: diffs != the '
+                                 f'unsharded fleet\'s for {bad[:3]}')
+        print(f'mesh (b) tick {k + 1} ({card}): ShardedGeneralDocSet '
+              f'({n_docs} docs, 4 shards) apply {t_apply:.1f} ms against '
+              f'the unsharded fleet\'s {apply_ms[k]:.1f} ms (phase 4); '
+              f'patch read of {len(sub)} docs {t_read:.1f} ms; diffs == '
+              f'phase 4\'s', flush=True)
+    per_shard = [sum(1 for s in fleet._doc_shard.values() if s == i)
+                 for i in range(4)]
+    t0 = time.perf_counter()
+    got = fleet.materialize_all()
+    t_mat = (time.perf_counter() - t0) * 1e3
+    if got != views:
+        raise AssertionError('sharded views != the unsharded fleet\'s')
+    bad = [i for i in ids
+           if int(fleet.digest_of_id(i)) != int(plain.digest_of_id(i))]
+    if bad:
+        raise AssertionError(f'sharded digests differ for {bad[:3]}')
+    rng = np.random.default_rng(17)
+    movers = [ids[d] for d in rng.choice(n_docs, n_migrate, replace=False)]
+    plan = {d: (fleet.shard_of(d) + 1 + int(rng.integers(3))) % 4
+            for d in movers}
+    t0 = time.perf_counter()
+    moved = fleet.migrate_docs(plan)
+    _sync_all(dev)
+    t_mig = (time.perf_counter() - t0) * 1e3
+    if moved != n_migrate or any(fleet.shard_of(d) != s
+                                 for d, s in plan.items()):
+        raise AssertionError(f'migrated {moved} of {n_migrate} documents')
+    if fleet.materialize_all() != views:
+        raise AssertionError('views changed across the migration')
+    bad = [i for i in movers
+           if int(fleet.digest_of_id(i)) != int(plain.digest_of_id(i))]
+    if bad:
+        raise AssertionError(f'migrated digests differ for {bad[:3]}')
+    status = fleet.fleet_status(docs=False)
+    print(f'mesh (b) ({card}): docs per shard {per_shard}; '
+          f'materialize_all {t_mat:.1f} ms == the unsharded views of all '
+          f'{n_docs} docs, per-doc digests equal; migrate_docs of '
+          f'{n_migrate} docs (digest-verified) {t_mig:.1f} ms, views and '
+          f'digests unchanged; placement migrations '
+          f'{status["placement"]["migrations"]}, imbalance '
+          f'{status["placement"]["imbalance"]}', flush=True)
+
+
+def _mesh_capture(mesh, card, counts, tick, dev='cuda'):
+    """5d(c): the reference's multichip gate — a captured config-5 tick
+    1 (the fused program's staged planes and outputs) re-run through
+    ``sharded_step_from_capture`` on ``mesh``: survivors, winners,
+    visibility and visible indexes bit-equal to the fused outputs."""
+    from automerge_tpu_torch.device import general
+    from automerge_tpu_torch.parallel.general_shard import \
+        sharded_step_from_capture
+    captured = {}
+    store = general.init_store(len(tick), device=dev)
+    general._STAGE_CAPTURE = captured.update
+    try:
+        patch = general.apply_general_block(store,
+                                            store.encode_changes(tick))
+    finally:
+        general._STAGE_CAPTURE = None
+    with counts.drive('the sharded general step', need=('rga_order',)):
+        t0 = time.perf_counter()
+        got, fused = sharded_step_from_capture(mesh, store, patch,
+                                               captured)
+        t_step = (time.perf_counter() - t0) * 1e3
+    for k in ('surviving', 'winner', 'visible', 'vis_index'):
+        if got[k].dtype != fused[k].dtype or \
+                not np.array_equal(got[k], fused[k]):
+            raise AssertionError(f'sharded general step {k} != the fused '
+                                 f'program\'s')
+    K, m = fused['visible'].shape
+    print(f'mesh (c) ({card}): sharded_step_from_capture of tick 1 '
+          f'({int(captured["n_rows"])} rows, {captured["vis_fmt"]} '
+          f'{captured["variant"]} program, jobs K={K} m={m} over '
+          f'{mesh.devices.size} entries) in {t_step:.1f} ms: survivors, '
+          f'winners, visibility and visible indexes bit-equal to the '
+          f'fused outputs', flush=True)
+
+
+def _mesh_engine(mesh, card, counts, docs, dev='cuda'):
+    """5d(d): ``ShardedDocSetEngine(mesh)`` on the map-only fleet: the
+    per-doc fields equal ``batch_merge_docs`` on ``dev``; the kernel
+    outputs and stats of ``sharded_merge_step`` on ``mesh`` equal a CPU
+    mesh's on the same packed arrays."""
+    import torch
+    from automerge_tpu_torch.config import Options
+    from automerge_tpu_torch.device import engine, packing
+    from automerge_tpu_torch.parallel.docset_engine import (
+        ShardedDocSetEngine, sharded_merge_step)
+    from automerge_tpu_torch.parallel.mesh import make_mesh, shard_docs
+    with counts.drive('ShardedDocSetEngine', need=('flatmap_resolve',)):
+        t0 = time.perf_counter()
+        got, stats = ShardedDocSetEngine(mesh).apply_changes_batch(docs)
+        t_eng = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = engine.batch_merge_docs(docs, device=dev)
+    t_one = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f'sharded engine fields != batch_merge_docs '
+                             f'for docs {bad[:3]}')
+    packed = [packing.pack_assignments(c) for c in docs]
+    arrays = packing.pad_and_stack(packed)[:6]
+    S = Options().pad_segments(max(p.n_segments for p in packed))
+    with counts.drive('sharded_merge_step', need=('flatmap_resolve',)):
+        out, st = sharded_merge_step(mesh, *shard_docs(mesh, *arrays),
+                                     num_segments=S)
+        _sync_all(dev)
+    cpu = make_mesh(mesh.devices.size, device='cpu')
+    c_out, c_st = sharded_merge_step(cpu, *shard_docs(cpu, *arrays),
+                                     num_segments=S)
+    for k in out:
+        if not torch.equal(torch.cat([t.cpu() for t in out[k]]),
+                           torch.cat(c_out[k])):
+            raise AssertionError(f'sharded merge step {k}: {dev} != cpu')
+    c_st = {k: int(v) for k, v in c_st.items()}
+    if stats != c_st or {k: int(v) for k, v in st.items()} != c_st:
+        raise AssertionError(f'sharded merge stats {stats} != cpu {c_st}')
+    D, N = arrays[0].shape
+    print(f'mesh (d) ({card}): ShardedDocSetEngine over '
+          f'{mesh.devices.size} entries, {D} docs x {N} ops '
+          f'({int(arrays[5].sum())} ops, D = {D // mesh.devices.size} a '
+          f'shard) {t_eng:.1f} ms, fields == batch_merge_docs '
+          f'({t_one:.1f} ms); kernel outputs and stats {c_st} == a cpu '
+          f'mesh', flush=True)
+
+
+def peer_ops(n_peers=4, n_ops=16384, n_actors=16, n_keys=4096, seed=23):
+    """5d(e)'s hot document: ``n_peers`` replicas, each holding
+    ``n_ops`` locally made set/del ops from its own ``n_actors /
+    n_peers`` writers (each writer's chain sequential, concurrent with
+    every other writer), over ``n_keys`` keys. Returns the packed [P, n]
+    columns, [P, n, A] clocks and [P, A] replica clocks."""
+    rng = np.random.default_rng(seed)
+    per = n_actors // n_peers
+    chain = n_ops // per
+    seg_id = rng.integers(0, n_keys, size=(n_peers, n_ops)).astype(np.int32)
+    actor = (np.arange(n_peers)[:, None] * per
+             + np.arange(n_ops)[None, :] // chain).astype(np.int32)
+    seq = np.tile(np.arange(n_ops, dtype=np.int32) % chain + 1,
+                  (n_peers, 1))
+    clock = np.zeros((n_peers, n_ops, n_actors), np.int32)
+    p_idx, o_idx = np.indices((n_peers, n_ops))
+    clock[p_idx, o_idx, actor] = seq - 1
+    is_del = rng.random((n_peers, n_ops)) < 0.05
+    valid = np.ones((n_peers, n_ops), bool)
+    peer_clock = np.zeros((n_peers, n_actors), np.int32)
+    for p in range(n_peers):
+        peer_clock[p, p * per:(p + 1) * per] = chain
+    return seg_id, actor, seq, clock, is_del, valid, peer_clock
+
+
+def _mesh_peers(card, counts, dev='cuda', n_ops=16384, n_keys=4096,
+                windows=(64, 1024)):
+    """5d(e): replica sync over ``make_peer_mesh`` on four entries: the
+    all-gather and ring rounds give identical rows on every peer, equal
+    to a CPU peer mesh's; delta sync (all-gather and ring, each window)
+    ends in a round that ships 0, and every peer's buffer then resolves
+    to the union's outcome."""
+    import torch
+    from automerge_tpu_torch.device.cuda_merge import dispatch_resolve
+    from automerge_tpu_torch.parallel import ici_sync
+    mesh = ici_sync.make_peer_mesh(devices=mesh_of(dev).devices)
+    cpu = ici_sync.make_peer_mesh(4, device='cpu')
+    cols = peer_ops(n_ops=n_ops, n_keys=n_keys)
+    P, A = cols[6].shape
+    with counts.drive('peer sync', need=('flatmap_resolve',)):
+        t0 = time.perf_counter()
+        out, clocks, stats = ici_sync.sync_step(
+            mesh, *ici_sync.shard_peers(mesh, *cols), num_segments=n_keys)
+        _sync_all(dev)
+        t_ag = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ring = ici_sync.ring_sync_step(
+            mesh, *ici_sync.shard_peers(mesh, *cols[:6]),
+            num_segments=n_keys)
+        _sync_all(dev)
+        t_ring = (time.perf_counter() - t0) * 1e3
+    c_out, c_clocks, c_stats = ici_sync.sync_step(
+        cpu, *ici_sync.shard_peers(cpu, *cols), num_segments=n_keys)
+    c_ring = ici_sync.ring_sync_step(
+        cpu, *ici_sync.shard_peers(cpu, *cols[:6]), num_segments=n_keys)
+    for name, got, want in (('all-gather', out, c_out),
+                            ('ring', ring, c_ring)):
+        for k in got:
+            rows = [t.cpu() for t in got[k]]
+            if not all(torch.equal(r, c) for r, c in zip(rows, want[k])):
+                raise AssertionError(f'{name} sync {k}: {dev} != cpu')
+            if name == 'all-gather' and \
+                    not all(torch.equal(r, rows[0]) for r in rows):
+                raise AssertionError(f'all-gather sync {k}: peers differ')
+    if not all(torch.equal(c.cpu(), w) for c, w in zip(clocks, c_clocks)) \
+            or {k: int(v) for k, v in stats.items()} != \
+            {k: int(v) for k, v in c_stats.items()}:
+        raise AssertionError('peer sync clocks or stats != cpu')
+    union = [torch.as_tensor(a.reshape((1, -1) + a.shape[2:])).to(
+        mesh.devices[0]) for a in cols[:6]]
+    ref = dispatch_resolve(*union, num_segments=n_keys)
+    ref_surv = int(ref['surviving'].sum())
+    logs = {}
+    for ring_mode in (False, True):
+        for window in windows:
+            state = ici_sync.make_delta_state(mesh, *cols[:6],
+                                              n_cap=P * n_ops)
+            with counts.drive('delta sync'):
+                t0 = time.perf_counter()
+                state, log = ici_sync.delta_sync_converge(
+                    mesh, state, window=window, ring=ring_mode,
+                    max_rounds=8192)
+                _sync_all(dev)
+                t_d = (time.perf_counter() - t0) * 1e3
+            if log[-1] != 0 or int(torch.cat(state[6]).min()) != P * n_ops:
+                raise AssertionError(f'delta sync (ring {ring_mode}, '
+                                     f'window {window}) did not converge')
+            for p in range(P):
+                got = dispatch_resolve(*(x[p] for x in state[:6]),
+                                       num_segments=n_keys)
+                if not torch.equal(got['seg_max_actor'],
+                                   ref['seg_max_actor'].to(
+                                       got['seg_max_actor'].device)) or \
+                        int(got['surviving'].sum()) != ref_surv:
+                    raise AssertionError(f'delta sync peer {p} resolves '
+                                         f'unlike the union')
+            logs['ring' if ring_mode else 'all-gather', window] = \
+                (len(log), sum(log), t_d)
+    print(f'mesh (e) ({card}): {P} peers x {n_ops} ops over A={A} actors, '
+          f'S={n_keys} keys; sync_step {t_ag:.1f} ms and ring_sync_step '
+          f'{t_ring:.1f} ms, identical rows on every peer == a cpu peer '
+          f'mesh; delta sync (rounds, ops shipped, ms): '
+          + '; '.join(f'{m} window {w}: {n} rounds, {s} ops, {t:.1f} ms'
+                      for (m, w), (n, s, t) in logs.items())
+          + '; each ends shipping 0 and every peer resolves like the '
+          'union', flush=True)
+
+
+def _mesh_hot_shard(card, counts, dev='cuda', scale='full'):
+    """5d(f): ``hot_shard`` (one sharded node, its documents pinned to
+    shard 0): green with the controller, red without; views equal
+    ``run_oracle(device='cpu')``; with the controller at least one
+    migration and a settled imbalance of at most 2.2."""
+    from automerge_tpu_torch import fleetsim
+    sched = fleetsim.build_schedule('hot_shard', scale=scale)
+    t0 = time.perf_counter()
+    oracle = fleetsim.run_oracle(sched, device='cpu')
+    t_oracle = time.perf_counter() - t0
+    spec = sched['spec']
+    for controller, verdict in ((True, 'green'), (False, 'red')):
+        with counts.drive('hot_shard', need=('rga_order',)):
+            t0 = time.perf_counter()
+            r = fleetsim.FleetSim(schedule=sched, controller=controller,
+                                  collect_views=True, device=dev).run()
+            _sync_all(dev)
+            t_run = time.perf_counter() - t0
+        if r['verdict'] != verdict or r['views'] != oracle:
+            raise AssertionError(
+                f'hot_shard (controller {controller}): verdict '
+                f'{r["verdict"]}, views == oracle: {r["views"] == oracle}; '
+                f'{[k for k, c in r["checks"].items() if not c["ok"]]}')
+        if controller and (r['migrations'] < 1 or
+                           r['shard_imbalance'] > 2.2):
+            raise AssertionError(f'hot_shard: {r["migrations"]} migrations,'
+                                 f' imbalance {r["shard_imbalance"]}')
+        print(f'mesh (f) hot_shard {scale} ({card}, controller '
+              f'{"on" if controller else "off"}): {r["verdict"]}; 1 node x '
+              f'{spec["n_docs"]} docs over {spec["n_shards"]} shards, '
+              f'{r["n_ops"]} ops in {r["wall_s"]} s of ticks '
+              f'({t_run:.1f} s with set-up), {r["ops_per_sec"]} ops/s, '
+              f'settled imbalance {r["shard_imbalance"]}, migrations '
+              f'{r["migrations"]}, control {r["control_actions"]}; views '
+              f'== the cpu oracle ({t_oracle:.1f} s)', flush=True)
+
+
+def _mesh_dense(mesh, card, dense_p50, dev='cuda', iters=10, block=None):
+    """5d(g): the 1M-op dense block into ``DenseMapStore(n, mesh=mesh)``:
+    planes and patch tensors bit-equal to an unsharded store on ``dev``
+    after the same block; p50 of ``iters`` blocking applies."""
+    import torch
+    from automerge_tpu_torch.device.dense_store import DenseMapStore
+    from automerge_tpu_torch.device.workloads import gen_block_workload
+    block = gen_block_workload() if block is None else block
+    kw = dict(key_capacity=64, actor_capacity=16)
+    plain = DenseMapStore(block.n_docs, device=dev, **kw)
+    store = DenseMapStore(block.n_docs, mesh=mesh, **kw)
+    want = plain.apply_block(block).block_until_ready()
+    got = store.apply_block(block).block_until_ready()
+    for name in ('eseq', 'eval_', 'm'):
+        if not torch.equal(getattr(store, name), getattr(plain, name)):
+            raise AssertionError(f'sharded dense plane {name} != unsharded')
+    for name in ('fidx', 'winner_slot', 'winner_value', 'alive', 'values'):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f'sharded dense patch {name} != unsharded')
+    times = []
+    for _ in range(iters):
+        store.reset()
+        _sync_all(dev)
+        t0 = time.perf_counter()
+        store.apply_block(block).block_until_ready()
+        _sync_all(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.percentile(times, 50))
+    print(f'mesh (g) ({card}): {block.n_ops} ops over {block.n_docs} docs '
+          f'into DenseMapStore(mesh=4 entries), planes 4 x '
+          f'{tuple(store._planes[0][0].shape)} int32 a plane; planes and '
+          f'patch tensors bit-equal to the unsharded store; {iters} '
+          f'blocking applies p50 {p50:.2f} ms, min {min(times):.2f} ms '
+          f'against phase 5b\'s unsharded p50 {dense_p50:.2f} ms',
+          flush=True)
+
+
+def _mesh_scaling(mesh, card, counts, dev='cuda', n_docs=4096,
+                  requests=128):
+    """5d(h): the JAX package's sharded-fleet scaling lane
+    (``bench.py:1400``): ``n_docs`` six-element lists, then ``requests``
+    single-doc mid-list inserts, timed one by one (device drained), at
+    1 shard and at 4 over ``mesh``. Returns {shards: (p50, p99)}."""
+    import random
+    from automerge_tpu_torch.parallel.mesh import make_mesh
+    from automerge_tpu_torch.sync.sharded import ShardedGeneralDocSet
+
+    def obj_of(d):
+        return f'00000000-0000-4000-8000-{d:012x}'
+
+    seed_len = 6
+    out = {}
+    for n_shards in (1, 4):
+        m = mesh if n_shards == 4 else make_mesh(devices=mesh.devices[:1])
+        fleet = ShardedGeneralDocSet(n_docs, n_shards=n_shards, mesh=m)
+        per = {}
+        for d in range(n_docs):
+            ops = [{'action': 'makeList', 'obj': obj_of(d)},
+                   {'action': 'link', 'obj': ROOT_ID, 'key': 'items',
+                    'value': obj_of(d)},
+                   {'action': 'ins', 'obj': obj_of(d), 'key': '_head',
+                    'elem': 1}]
+            for i in range(2, seed_len + 1):
+                ops.append({'action': 'ins', 'obj': obj_of(d),
+                            'key': f'w0-{d}:{i - 1}', 'elem': i})
+            per[f'doc{d}'] = [{'actor': f'w0-{d}', 'seq': 1, 'deps': {},
+                               'ops': ops}]
+        items = list(per.items())
+        for i in range(0, len(items), 1024):
+            fleet.apply_changes_batch(dict(items[i:i + 1024]))
+        rng = random.Random(7)
+        seqs = {}
+
+        def request(t, d=None):
+            d = rng.randrange(n_docs) if d is None else d
+            k = seqs.get(d, 1) + 1
+            seqs[d] = k
+            elem = seed_len + 1 + k
+            fleet.apply_changes(f'doc{d}', [
+                {'actor': f'w0-{d}', 'seq': k, 'deps': {f'w0-{d}': k - 1},
+                 'ops': [
+                     {'action': 'ins', 'obj': obj_of(d),
+                      'key': f'w0-{d}:{rng.randrange(1, seed_len)}',
+                      'elem': elem},
+                     {'action': 'set', 'obj': obj_of(d),
+                      'key': f'w0-{d}:{elem}', 'value': t}]}])
+
+        warm = {}
+        for d in range(n_docs):
+            warm.setdefault(fleet.shard_of(f'doc{d}'), []).append(d)
+        t = 0
+        for docs in warm.values():
+            for d in docs[:max(6, -(-16 // len(warm)))]:
+                request(t, d=d)
+                t += 1
+        _sync_all(dev)
+        times = []
+        with counts.drive(f'the scaling lane at {n_shards} shards',
+                          need=('rga_order',)):
+            for t in range(requests):
+                t1 = time.perf_counter()
+                request(t)
+                _sync_all(dev)
+                times.append((time.perf_counter() - t1) * 1e3)
+        # the seed's elements carry no value; each insert adds one
+        views = fleet.materialize_all()
+        short = [d for d in range(n_docs)
+                 if len(views[f'doc{d}']['items']) != seqs.get(d, 1) - 1]
+        if short:
+            raise AssertionError(f'scaling lane lists of the wrong length: '
+                                 f'{short[:3]}')
+        out[n_shards] = (float(np.percentile(times, 50)),
+                         float(np.percentile(times, 99)))
+    print(f'mesh (h) ({card}): {n_docs} docs, {requests} single-doc '
+          f'mid-list inserts, request p50 / p99: 1 shard '
+          f'{out[1][0]:.3f} / {out[1][1]:.3f} ms, 4 shards '
+          f'{out[4][0]:.3f} / {out[4][1]:.3f} ms', flush=True)
+    return out
+
+
+def _mesh_path(card, inputs, ticks, ids, plain, views, diffs, sub,
+               apply_ms, dense_p50):
+    """Phase 5d: the mesh layer on the card, parts (a)-(h) over the
+    4-entry mesh :func:`mesh_of`. Returns the launch counts by launch
+    key, summed over the parts' drives."""
+    from automerge_tpu_torch.parallel.mesh import make_mesh
+    t_all = time.perf_counter()
+    mesh = mesh_of('cuda')
+    print(f'mesh ({card}): make_mesh() covers '
+          f'{make_mesh().devices.size} visible card(s); the 4-entry mesh '
+          f'is {[str(d) for d in mesh.devices]}', flush=True)
+    counts = _MeshCounts(inputs)
+    part = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        part[name] = time.perf_counter() - t0
+        return out
+
+    timed('a', _mesh_collectives, mesh, card)
+    timed('b', _mesh_fleet, mesh, card, counts, ticks, ids, plain, views,
+          diffs, sub, apply_ms)
+    timed('c', _mesh_capture, mesh, card, counts, ticks[0])
+    timed('d', _mesh_engine, mesh, card, counts, gen_map_fleet(len(ids)))
+    timed('e', _mesh_peers, card, counts)
+    timed('f', _mesh_hot_shard, card, counts)
+    timed('g', _mesh_dense, mesh, card, dense_p50)
+    timed('h', _mesh_scaling, mesh, card, counts)
+    print(f'mesh launches: {counts.counts}; parts (s): '
+          + ', '.join(f'{k} {v:.1f}' for k, v in part.items())
+          + f'; phase 5d {time.perf_counter() - t_all:.1f} s', flush=True)
+    return counts.counts
 
 
 def main():
@@ -2279,7 +2831,7 @@ def main():
 
     metrics.reset()
     gds = GeneralDocSet(n_docs, device='cuda')
-    diffs_gpu = []
+    diffs_gpu, apply_ms = [], []
     _reset_counts(cuda_view, cuda_sequence, cuda_merge)
     with _capturing(inputs):
         for k, batch in enumerate(ticks):
@@ -2302,6 +2854,7 @@ def main():
                                      'index update through the RGA '
                                      'kernel\'s delta mode')
             diffs_gpu.append(diffs)
+            apply_ms.append(t_apply)
             enc = _span_sum(spans, 'admit.encode')
             fused = _span_sum(spans, 'device.fused_apply')
             print(f'tick {k + 1} ({card}): apply {t_apply:.1f} ms = dict '
@@ -2372,8 +2925,12 @@ def main():
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
     # ---- 5b. the dense engine's 1M-op block; 5c. the fleet ----
-    _dense_path(card)
+    dense_p50 = _dense_path(card)
     fleet_counts = _fleet_path(card, inputs)
+
+    # ---- 5d. the mesh layer ----
+    mesh_counts = _mesh_path(card, inputs, ticks, ids, gds, views_gpu,
+                             diffs_gpu, sub, apply_ms, dense_p50)
 
     # ---- 6. device busy vs wall ----
     _profile_tick(gds, ids, n_docs, list_ops, card)
@@ -2382,7 +2939,7 @@ def main():
     launched = {}
     for counts in (main_counts, long_counts['launches'], wire_counts,
                    text_counts, facade_counts, dds_counts,
-                   fleet_counts):
+                   fleet_counts, mesh_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
     kernels = [_kernel_row(key, n, inputs.get(key), card)

@@ -9,7 +9,9 @@ value refs both sequential (rebuilt on the device) and shipped. Then the
 store end to end: ``apply_block`` patches over a causal stream,
 ``extract_all``, the async applier, snapshots written by either package
 and loaded by the other, and ``DenseDocSet`` replicating against the JAX
-package's over ``Connection``. A ``cuda``-marked case holds the card's
+package's over ``Connection``. A ``mesh=`` store (its planes split over
+logical CPU mesh entries) is bit-equal to the unsharded store and to
+the JAX package's sharded store, and resumes sharded from a snapshot. A ``cuda``-marked case holds the card's
 planes bit-equal to a CPU store's (run there with ``python -m pytest
 tests/test_torch_dense_store.py -m cuda``)."""
 
@@ -21,6 +23,7 @@ from automerge_tpu_torch.common import ROOT_ID
 from automerge_tpu_torch.device import blocks as tblocks
 from automerge_tpu_torch.device import dense_store as tdense
 from automerge_tpu_torch.device import workloads as twork
+from automerge_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -281,11 +284,114 @@ def test_entry_points_resolve_their_device():
             tdense.DenseMapStore(2)
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             DenseDocSet(2)
-    with pytest.raises(NotImplementedError, match='mesh layer'):
-        tdense.DenseMapStore(2, device='cpu', mesh=object())
     store = tdense.DenseMapStore(2, key_capacity=4, actor_capacity=2,
                                  device='cpu')
     assert all(getattr(store, p).device.type == 'cpu' for p in PLANES)
+    # a mesh store lives on its mesh's entries, whatever ``device`` says
+    store = tdense.DenseMapStore(2, key_capacity=4, actor_capacity=2,
+                                 mesh=make_mesh(2, device='cpu'))
+    assert store.device.type == 'cpu'
+    assert all(getattr(store, p).device.type == 'cpu' for p in PLANES)
+
+
+def _mesh_pair(n_docs, n_dev, **kw):
+    return (tdense.DenseMapStore(n_docs, device='cpu', **kw),
+            tdense.DenseMapStore(n_docs, mesh=make_mesh(n_dev,
+                                                        device='cpu'),
+                                 **kw))
+
+
+def _same_store(a, b):
+    for name in PLANES:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+        assert getattr(b, name).dtype == torch.int32
+
+
+@pytest.mark.parametrize('n_dev', [1, 3, 4])
+def test_mesh_store_is_bit_equal_to_the_unsharded_store(n_dev):
+    """Causal blocks with closure clocks, deletes and shipped value
+    refs: planes, every patch tensor (padding rows included) and the
+    diffs equal the unsharded store's after every block; then the
+    wire-lean workload stream (sequential value refs) through the async
+    applier, and extract_all."""
+    n_docs = 12
+    plain, sharded = _mesh_pair(n_docs, n_dev, key_capacity=8,
+                                actor_capacity=6)
+    assert [len(p[0]) for p in sharded._planes] == [96 // n_dev] * n_dev
+    for per_doc in _random_stream(11, n_docs, 4):
+        pp = plain.apply_block(tblocks.ChangeBlock.from_changes(per_doc))
+        sp = sharded.apply_block(tblocks.ChangeBlock.from_changes(per_doc))
+        _same_store(plain, sharded)
+        for name in OUTS:
+            a, b = getattr(pp, name), getattr(sp, name)
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert [pp.diffs(d) for d in range(n_docs)] == \
+            [sp.diffs(d) for d in range(n_docs)]
+    plain, sharded = _mesh_pair(n_docs, n_dev, key_capacity=16,
+                                actor_capacity=8)
+    for k in range(3):
+        kw = dict(n_docs=n_docs, n_actors=4, ops_per_change=3, n_keys=12,
+                  seed=k, del_p=0.2, seq0=k + 1)
+        want = plain.apply_block(twork.gen_block_workload(**kw))
+        got = sharded.apply_block_async(twork.gen_block_workload(**kw))
+        got.block_until_ready()
+        for name in OUTS:
+            assert torch.equal(getattr(want, name), getattr(got, name))
+    sharded.drain()
+    _same_store(plain, sharded)
+    assert plain.extract_all().to_patches() == \
+        sharded.extract_all().to_patches()
+    sharded.close()
+
+
+def test_mesh_store_matches_the_references_sharded_store():
+    import jax
+    from automerge_tpu.device import blocks as jblocks
+    from automerge_tpu.device import dense_store as jdense
+    from automerge_tpu.parallel.mesh import make_mesh as jmake_mesh
+    if len(jax.devices()) < 4:
+        pytest.skip('needs 4 host devices')
+    n_docs = 8
+    jstore = jdense.DenseMapStore(n_docs, key_capacity=8, actor_capacity=6,
+                                  mesh=jmake_mesh(4))
+    tstore = tdense.DenseMapStore(n_docs, key_capacity=8, actor_capacity=6,
+                                  mesh=make_mesh(4, device='cpu'))
+    for per_doc in _random_stream(12, n_docs, 3):
+        jp = jstore.apply_block(jblocks.ChangeBlock.from_changes(per_doc))
+        tp = tstore.apply_block(tblocks.ChangeBlock.from_changes(per_doc))
+        _same_planes(jstore, tstore)
+        _same_outs([getattr(jp, k) for k in OUTS],
+                   [getattr(tp, k) for k in OUTS], OUTS)
+
+
+def test_mesh_store_needs_whole_documents_per_entry():
+    with pytest.raises(ValueError, match='10 docs do not divide over 4 '
+                                         'devices'):
+        tdense.DenseMapStore(10, mesh=make_mesh(4, device='cpu'))
+
+
+def test_load_snapshot_onto_a_mesh():
+    from automerge_tpu.device import dense_store as jdense
+    from automerge_tpu.device import workloads as jwork
+    n_docs = 8
+    kw = dict(n_docs=n_docs, n_actors=3, ops_per_change=3, n_keys=10,
+              seed=4, del_p=0.2)
+    jstore = jdense.DenseMapStore(n_docs, key_capacity=16, actor_capacity=4)
+    jstore.apply_block(jwork.gen_block_workload(**kw))
+    mesh = make_mesh(4, device='cpu')
+    for data in (jstore.save_snapshot(),
+                 tdense.DenseMapStore.load_snapshot(
+                     jstore.save_snapshot(), device='cpu').save_snapshot()):
+        store = tdense.DenseMapStore.load_snapshot(data, mesh=mesh)
+        assert len(store._planes) == 4
+        _same_planes(jstore, store)
+        assert store.extract_all().to_patches() == \
+            jstore.extract_all().to_patches()
+        nxt = dict(kw, seed=5, seq0=2)
+        want = tdense.DenseMapStore.load_snapshot(data, device='cpu')
+        want.apply_block(twork.gen_block_workload(**nxt))
+        store.apply_block(twork.gen_block_workload(**nxt))
+        _same_store(want, store)
 
 
 @pytest.fixture

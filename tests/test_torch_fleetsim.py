@@ -9,7 +9,10 @@ second seed at the smoke scale). At the ``TINY`` scale of
 on and off, the reconnect storm) the port's run must land the reference's views, per-doc state digests,
 verdict, control actions and every scorecard field that reads no clock
 (the events compared without their timestamps), and equal its own
-dict-path oracle. ``hot_shard`` needs the mesh layer and raises."""
+dict-path oracle. ``hot_shard`` (one sharded node over a mesh of
+logical CPU entries) at the smoke scale must land the reference's
+verdicts — green with the controller, red without —, migrations,
+settled imbalance, control actions, views and digests."""
 
 import os
 import pickle
@@ -103,6 +106,9 @@ def _reference_runs():
     out = {run: _run(jfleetsim, jmetrics, *run)[1:] for run in RUNS}
     out['oracle'] = jfleetsim.run_oracle(jfleetsim.build_schedule(
         'zipf', seed=5, scale=TINY['zipf']))
+    for controller in (True, False):
+        out['hot_shard', controller] = jfleetsim.run_scenario(
+            'hot_shard', controller=controller, collect_views=True)
     return out
 
 
@@ -155,9 +161,35 @@ def test_oracle_matches_reference(reference):
     assert fleetsim.run_oracle(sched, device='cpu') == reference['oracle']
 
 
-def test_hot_shard_raises_until_the_mesh_layer_is_ported():
-    with pytest.raises(NotImplementedError, match='mesh layer'):
-        fleetsim.run_scenario('hot_shard', device='cpu')
+# the sharded scorecard's fields that read no clock and name no device
+SHARDED_FIELDS = ('scenario', 'seed', 'controller', 'verdict', 'checks',
+                  'n_ops', 'n_actors', 'peak_resident_bytes',
+                  'non_green_polls', 'polls', 'final_health',
+                  'shard_imbalance', 'migrations', 'control_actions',
+                  'control_action_total', 'schedule_digest',
+                  'state_digests', 'views')
+
+
+@pytest.mark.parametrize('controller', [True, False])
+def test_hot_shard_matches_reference(reference, controller):
+    want = reference['hot_shard', controller]
+    got = fleetsim.run_scenario('hot_shard', controller=controller,
+                                collect_views=True, device='cpu')
+    for name in SHARDED_FIELDS:
+        assert got[name] == want[name], name
+    strip = [{k: v for k, v in row.items() if k != 'device'}
+             for row in got['per_shard']]
+    assert strip == [{k: v for k, v in row.items() if k != 'device'}
+                     for row in want['per_shard']]
+    assert got['verdict'] == ('green' if controller else 'red')
+    if controller:
+        assert got['migrations'] >= 1 and got['shard_imbalance'] <= 2.2
+        assert got['control_actions'].get('migrate', 0) >= 1
+    else:
+        assert got['migrations'] == 0 and not got['control_actions']
+    sched = fleetsim.build_schedule('hot_shard')
+    assert got['views'] == fleetsim.run_oracle(sched, device='cpu')
+    assert 'hot_shard' in fleetsim.ADAPTIVE_SCENARIOS
 
 
 def test_entry_points_resolve_their_device():

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of ``automerge_tpu_torch``
 (nor ``chip_smoke.py``, nor the port's ``tools/torch_*.py``) imports JAX
-or the JAX package, importing it loads neither, and its entry points
-refuse to fall back to the CPU when CUDA is missing."""
+or the JAX package, importing it (the mesh layer included) loads
+neither, nor any ``torch.distributed`` module beyond those ``import
+torch`` loads, and its entry points refuse to fall back to the CPU when
+CUDA is missing."""
 
 import ast
 import os
@@ -50,6 +52,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         'import sys\n'
+        # torch itself loads torch.distributed; the port must add none
+        'import torch\n'
         'before = set(sys.modules)\n'
         'import automerge_tpu_torch\n'
         'import automerge_tpu_torch.device.general\n'
@@ -85,10 +89,17 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         'import automerge_tpu_torch.sync.chaos\n'
         'import automerge_tpu_torch.sync.dense_doc_set\n'
         'import automerge_tpu_torch.device.dense_store\n'
+        'import automerge_tpu_torch.parallel\n'
+        'import automerge_tpu_torch.parallel.mesh\n'
+        'import automerge_tpu_torch.parallel.docset_engine\n'
+        'import automerge_tpu_torch.parallel.general_shard\n'
+        'import automerge_tpu_torch.parallel.ici_sync\n'
+        'import automerge_tpu_torch.sync.sharded\n'
         'new = set(sys.modules) - before\n'
         'print(sorted(m for m in new if m == "jax" or '
         'm.startswith("jax.") or m == "automerge_tpu" or '
-        'm.startswith("automerge_tpu.")))\n')
+        'm.startswith("automerge_tpu.") or m == "torch.distributed" '
+        'or m.startswith("torch.distributed.")))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -147,9 +158,11 @@ def test_cpu_entry_points_keep_every_tensor_on_the_cpu():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Only the mesh hooks are left unported on these paths: the wire
-    apply, the state bootstrap and eviction (ported with the wire,
-    compaction and sync stack) work on a CPU doc set."""
+    """Nothing on these paths is left unported: the wire apply, the
+    state bootstrap and eviction (ported with the wire, compaction and
+    sync stack) work on a CPU doc set, and so do the mesh hooks — a
+    mesh from the options, a dense store on a mesh, and the sharded
+    fleet scenario."""
     from automerge_tpu_torch import GeneralDocSet, compaction
     from automerge_tpu_torch.config import Options
     from automerge_tpu_torch.device import general
@@ -173,11 +186,11 @@ def test_unported_paths_raise_not_implemented():
              'key': 'k', 'value': 2}]}], []]))
     assert fut.diffs(0)
     general.close_general(ds.store)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Options().make_mesh()
+    mesh = Options(n_devices=2).make_mesh(device='cpu')
+    assert mesh.devices.size == 2
     from automerge_tpu_torch import fleetsim
     from automerge_tpu_torch.device.dense_store import DenseMapStore
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        DenseMapStore(2, device='cpu', mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fleetsim.run_scenario('hot_shard', device='cpu')
+    store = DenseMapStore(2, key_capacity=4, actor_capacity=2, mesh=mesh)
+    assert [p[0].shape[0] for p in store._planes] == [4, 4]
+    out = fleetsim.run_scenario('hot_shard', device='cpu')
+    assert out['verdict'] == 'green' and out['migrations'] >= 1
