@@ -55,6 +55,37 @@
 // shared memory while (S+1)*(A+2) words fit in 200 KB, else in a global
 // scratch the caller allocates ('block-global'); four passes split by
 // __syncthreads, as first built.
+//
+// Split variant (fm_split_kernel; cuda_merge.variant takes it for a few
+// long documents, cuda_merge.SPLIT_BANDS): a batch of one or a few long
+// documents (replica sync's union of one hot document: D = 1, N =
+// 65,536, S = 4,096, A = 16) leaves the variants above on one CTA a
+// document, so on a few of the 132 SMs, and past the shared-memory cap
+// every clock word becomes a global atomic from that one SM. This
+// variant cuts the flat D*N op space into spans of kGridBlock-op tiles,
+// one span a CTA, over as many CTAs as there are tiles (up to all
+// resident), and keeps the slots in a global scratch in the L2: winner
+// keys [D*S] (int64) and clock maxima [D*S, A]. Four phases:
+//   fill:  keys = LLONG_MIN, cmax = INT_MIN (the caller's scratch is
+//          uninitialised)
+//   clock: each tile's op codes (global slot d*S + g, in range, valid)
+//          into a shared stash, then its clock words as one coalesced
+//          stream (16-byte vectors where A % 4 == 0, no division a
+//          word), each scattered with atomicMax into its op's slot: the
+//          warp variant's stream with a CTA-wide stride
+//   keys:  survivorship per op from cmax, surviving written coalesced,
+//          one 64-bit atomicMax of the warp variant's winner key per
+//          in-range op
+// Where the slots of the documents a CTA's span touches fit 48 KB
+// (documents with few fields), the clock and key phases combine in a
+// CTA-local table in shared memory first, then add each touched word to
+// the global table with one atomic: a document of 65,536 ops over 32
+// fields would otherwise send 2,048 atomics to each of its L2 words.
+// Replica sync's 4,096 fields (64K clock words) take the global table
+// directly; a warp's 8 ops of a 16-actor stream rarely share a slot
+// there.
+//   emit:  winner and seg_max_actor from the keys, one slot a thread
+// separated by grid barriers in one cooperative launch (csrc/grid.cuh).
 
 #include <algorithm>
 #include <climits>
@@ -64,6 +95,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -73,7 +105,8 @@ constexpr int kWarpDocs = 8;           // documents (warps) per CTA
 constexpr int kBatch = 8;              // clock vectors a lane has in flight
 
 // variants of the C entry point (cuda_merge._VARIANTS)
-constexpr int kVariantWarp = 0, kVariantBlock = 1, kVariantBlockGlobal = 2;
+constexpr int kVariantWarp = 0, kVariantBlock = 1, kVariantBlockGlobal = 2,
+              kVariantSplit = 3;
 
 // stash code word of an op: gather slot, in range, valid, deleted
 constexpr int kSlotMask = (1 << 28) - 1;
@@ -118,33 +151,36 @@ __device__ __forceinline__ void scatter_words(int32_t* slot, const V& c,
   }
 }
 
-// pass 1b: the document's N*A clock words as one coalesced stream of
+// pass 1b: a run of n_ops ops' clock words as one coalesced stream of
 // V-sized vectors (int4 needs A % 4 == 0, so a vector never straddles
-// two ops), each scattered into the slot of its op
-template <typename V>
+// two ops), STRIDE threads reading neighbouring vectors, each vector
+// scattered into the slot of its op (its stash code's slot, an index
+// into cmax's rows of A words)
+template <typename V, int STRIDE>
 __device__ __forceinline__ void clock_stream(const int32_t* __restrict__ clk,
-                                             int N, int A,
+                                             int n_ops, int A,
                                              const int* st_code,
-                                             int32_t* cmax, int lane) {
+                                             int32_t* cmax, int t) {
   constexpr int VW = sizeof(V) / 4;
   const V* src = reinterpret_cast<const V*>(clk);
-  const int n_vec = N * A / VW;
-  // (op, actor) of the lane's first word, and its step per vector
-  int j = VW * lane / A, a = VW * lane - j * A;
-  const int q = 32 * VW / A, r = 32 * VW - q * A;
-  for (int v0 = lane; v0 < n_vec; v0 += 32 * kBatch) {
+  const int n_vec = n_ops * A / VW;
+  // (op, actor) of the thread's first word, and its step per round
+  int j = VW * t / A, a = VW * t - j * A;
+  const int q = STRIDE * VW / A, r = STRIDE * VW - q * A;
+  for (int v0 = t; v0 < n_vec; v0 += STRIDE * kBatch) {
     V c[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      if (v0 + 32 * b < n_vec) c[b] = __ldcs(src + v0 + 32 * b);
+      if (v0 + STRIDE * b < n_vec) c[b] = __ldcs(src + v0 + STRIDE * b);
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      if (v0 + 32 * b < n_vec) {
+      if (v0 + STRIDE * b < n_vec) {
         const int code = st_code[j];
         if (code & kInRange) {
-          scatter_words(cmax + (code & kSlotMask) * A + a, c[b],
-                        code & kValid);
+          scatter_words(
+              cmax + static_cast<size_t>(code & kSlotMask) * A + a, c[b],
+              code & kValid);
         }
       }
       a += r;
@@ -248,9 +284,9 @@ fm_warp_kernel(const int32_t* __restrict__ seg_id,
 
   // pass 1b: per-slot clock maxima
   if (vec_clock) {
-    clock_stream<int4>(clock + row * A, N, A, st_code, cmax, lane);
+    clock_stream<int4, 32>(clock + row * A, N, A, st_code, cmax, lane);
   } else {
-    clock_stream<int>(clock + row * A, N, A, st_code, cmax, lane);
+    clock_stream<int, 32>(clock + row * A, N, A, st_code, cmax, lane);
   }
   __syncwarp();
 
@@ -382,6 +418,142 @@ fm_block_kernel(const int32_t* __restrict__ seg_id,
   }
 }
 
+// ---- split variant: each document's ops over many CTAs --------------------
+
+// The four phases of a split launch.
+constexpr int kPhaseFill = 0, kPhaseClock = 1, kPhaseKeys = 2,
+              kPhaseEmit = 3;
+// Bytes of a split CTA's local slot table (dynamic shared memory): the
+// clock maxima, then the winner keys, of the documents its span touches,
+// when they fit.
+constexpr int kSplitLocalBytes = 48 * 1024;
+
+// The four phases over the flat D*N op space, CTA b taking the ops
+// [b * span, (b + 1) * span), in tiles of kGridBlock ops (one a
+// thread), with a grid barrier between two phases (one cooperative
+// launch). keys [D*S] and cmax [D*S, A] are the global
+// tables the launch fills, so they are read with plain loads. LOCAL: a
+// CTA first takes the maxima of its span's documents (local_docs of
+// them from its first) in a shared table, then adds each word it
+// touched to the global one with one atomic: a span that hits few
+// slots (a document with few fields) contends in shared memory, not on
+// a few L2 words. (A template flag, so that every atomic's address
+// space is known when it compiles.)
+template <bool VEC, bool LOCAL>
+__global__ void __launch_bounds__(kGridBlock)
+fm_split_kernel(const int32_t* __restrict__ seg_id,
+                const int32_t* __restrict__ actor,
+                const int32_t* __restrict__ seq,
+                const int32_t* __restrict__ clock,
+                const uint8_t* __restrict__ is_del,
+                const uint8_t* __restrict__ valid,
+                uint8_t* __restrict__ surviving, int32_t* __restrict__ winner,
+                int32_t* __restrict__ seg_max_actor, long long* keys,
+                int32_t* cmax, int D, int N, int S, int A, int span,
+                int local_docs) {
+  __shared__ int st_code[kGridBlock];
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  const int tid = threadIdx.x;
+  const int total = D * N;
+  const int slots = D * S;
+  const int lo = blockIdx.x * span;
+  const int hi = min(lo + span, total);
+  // the slots the CTA addresses: its span's documents' in a local table
+  // from slot `base`, else every document's in the global one
+  const int base = LOCAL ? lo / N * S : 0;
+  const int local_slots = local_docs * S;
+  const int gt = blockIdx.x * kGridBlock + tid;
+  const int gstride = gridDim.x * kGridBlock;
+  for (int phase = kPhaseFill; phase <= kPhaseEmit; ++phase) {
+    if (phase == kPhaseFill) {
+      for (int q = gt; q < slots; q += gstride) keys[q] = LLONG_MIN;
+      const size_t words = static_cast<size_t>(slots) * A;
+      for (size_t q = gt; q < words; q += gstride) cmax[q] = INT_MIN;
+    } else if (phase == kPhaseClock) {
+      int32_t* tbl = cmax;
+      if (LOCAL) {
+        tbl = reinterpret_cast<int32_t*>(split_smem);
+        for (int q = tid; q < local_slots * A; q += kGridBlock) {
+          tbl[q] = INT_MIN;
+        }
+      }
+      // each tile: its ops' codes into the stash, then its clock words
+      // as one coalesced stream into the slots' maxima
+      for (int t0 = lo; t0 < hi; t0 += kGridBlock) {
+        const int nt = min(kGridBlock, hi - t0);
+        __syncthreads();          // the previous tile's stream is done
+        if (tid < nt) {
+          const int i = t0 + tid;
+          const int d = i / N;
+          const int s = __ldg(seg_id + i);
+          const int g = min(max(s < 0 ? s + S : s, 0), S - 1);
+          st_code[tid] = (d * S + g - base) |
+                         ((s >= 0 && s < S) ? kInRange : 0) |
+                         (__ldg(valid + i) ? kValid : 0);
+        }
+        __syncthreads();
+        const int32_t* clk = clock + static_cast<size_t>(t0) * A;
+        if (VEC) {
+          clock_stream<int4, kGridBlock>(clk, nt, A, st_code, tbl, tid);
+        } else {
+          clock_stream<int, kGridBlock>(clk, nt, A, st_code, tbl, tid);
+        }
+      }
+      if (LOCAL) {
+        // every word the span touched, once into the global maxima
+        __syncthreads();
+        int32_t* dst = cmax + static_cast<size_t>(base) * A;
+        for (int q = tid; q < local_slots * A; q += kGridBlock) {
+          if (tbl[q] != INT_MIN) atomicMax(dst + q, tbl[q]);
+        }
+      }
+    } else if (phase == kPhaseKeys) {
+      long long* ktbl = keys;
+      if (LOCAL) {
+        ktbl = reinterpret_cast<long long*>(split_smem);
+        for (int q = tid; q < local_slots; q += kGridBlock) {
+          ktbl[q] = LLONG_MIN;
+        }
+        __syncthreads();
+      }
+      // survivorship, then one winner-key maximum per in-range op
+      for (int i = lo + tid; i < hi; i += kGridBlock) {
+        const int d = i / N;
+        const int s = __ldg(seg_id + i);
+        const int g = min(max(s < 0 ? s + S : s, 0), S - 1);
+        const int ai = __ldg(actor + i);
+        const int q = __ldg(seq + i);
+        const size_t slot = static_cast<size_t>(d) * S + g;
+        const int seen = cmax[slot * A + min(max(ai, 0), A - 1)];
+        const bool surv = __ldg(valid + i) && !(seen >= q) &&
+                          !__ldg(is_del + i);
+        surviving[i] = surv;
+        if (s >= 0 && s < S) {
+          atomicMax(&ktbl[slot - base],
+                    surv ? winner_key(ai, static_cast<unsigned>(
+                                              N - (i - d * N)))
+                         : winner_key(-1, 0u));
+        }
+      }
+      if (LOCAL) {
+        __syncthreads();
+        for (int q = tid; q < local_slots; q += kGridBlock) {
+          if (ktbl[q] != LLONG_MIN) atomicMax(&keys[base + q], ktbl[q]);
+        }
+      }
+    } else {
+      // outputs: one slot a thread, coalesced
+      for (int q = gt; q < slots; q += gstride) {
+        const long long k = keys[q];
+        const unsigned low = static_cast<unsigned>(k & 0xffffffffll);
+        seg_max_actor[q] = static_cast<int>(k >> 32);
+        winner[q] = low == 0 ? -1 : N - static_cast<int>(low);
+      }
+    }
+    if (phase < kPhaseEmit) cooperative_groups::this_grid().sync();
+  }
+}
+
 struct Args {
   const int32_t* seg_id;
   const int32_t* actor;
@@ -432,9 +604,45 @@ int launch_block(const Args& a, int32_t* scratch, int use_smem) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split variant: one cooperative launch of its four phases. The
+// scratch holds D*S winner keys (int64, first), then D*S*A clock maxima.
+int launch_split(const Args& a, int32_t* scratch) {
+  const long long total = static_cast<long long>(a.D) * a.N;
+  if (scratch == nullptr || static_cast<long long>(a.D) * a.S > kSlotMask ||
+      total > kGridMaxSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = a.A % 4 == 0 && aligned<16>(a.clock);
+  GridShape gs;
+  const cudaError_t e = grid_shape(
+      kSplitLocalBytes, total, 1, 1, &gs, fm_split_kernel<true, true>,
+      fm_split_kernel<true, false>, fm_split_kernel<false, true>,
+      fm_split_kernel<false, false>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long* keys = reinterpret_cast<long long*>(scratch);
+  int32_t* cmax = scratch + 2 * static_cast<size_t>(a.D) * a.S;
+  // the documents a span of gs.span ops can touch, and whether their
+  // slots fit the local table
+  const long long docs =
+      std::min<long long>(a.D, (gs.span - 1) / a.N + 2);
+  const long long words = docs * a.S * std::max(a.A, 2);
+  const int local_docs = words * 4 <= kSplitLocalBytes
+                             ? static_cast<int>(docs) : 0;
+  const size_t smem = local_docs ? static_cast<size_t>(words) * 4 : 0;
+  auto* fn = vec ? (local_docs ? fm_split_kernel<true, true>
+                               : fm_split_kernel<true, false>)
+                 : (local_docs ? fm_split_kernel<false, true>
+                               : fm_split_kernel<false, false>);
+  return static_cast<int>(grid_launch(
+      fn, gs, smem, a.stream, a.seg_id, a.actor, a.seq, a.clock, a.is_del,
+      a.valid, a.surviving, a.winner, a.seg_max_actor, keys, cmax, a.D, a.N,
+      a.S, a.A, gs.span, local_docs));
+}
+
 int run(int variant, const Args& a, int32_t* scratch) {
   if (a.D <= 0) return 0;
   if (variant == kVariantWarp) return launch_warp(a);
+  if (variant == kVariantSplit) return launch_split(a, scratch);
   const int use_smem = variant == kVariantBlock;
   if ((!use_smem && variant != kVariantBlockGlobal) ||
       use_smem != (block_slot_bytes(a.S, a.A) <=
@@ -475,8 +683,11 @@ Args make_args(const void* seg_id, const void* actor, const void* seq,
 // surviving uint8 (bool) [D, N], winner and seg_max_actor int32 [D, S].
 // variant, which cuda_merge.variant picks: 0 warp, 1 block, 2 block with
 // its slots in a global scratch of D*(S+1)*(A+2) int32 that the caller
-// allocates; a variant the shape cannot take is refused. Returns the CUDA
-// error of the launch (0 on success).
+// allocates, and 3 split (one cooperative launch) on a scratch of
+// D*S*(A+2) int32 (cuda_merge.split_scratch_words) that the caller
+// allocates and the launch fills; a variant the shape cannot take is
+// refused. Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int flatmap_resolve_run(int variant, const void* seg_id,
                                    const void* actor, const void* seq,
                                    const void* clock, const void* is_del,

@@ -57,7 +57,7 @@
 // and writes every output once, coalesced. Nothing goes through global
 // scratch.
 //
-// Delta mode (rga_delta_launch, the same narrow kernel with an anchor
+// Delta mode (rga_delta_run, the same narrow kernel with an anchor
 // plane): the delta orderer behind the incremental index update
 // (sequence._rga_delta_order_batched; the JAX package's
 // automerge_tpu/device/sequence.py:252-300). Slot 0 stands in for the
@@ -69,8 +69,19 @@
 // mirror, so the packed keys take the anchor's span as one more field
 // and fall back to the two-word full key (parent_adj, anchor_k) and
 // (elem, actor) when the spans do not fit 63 bits. Only tree_pos is read
-// by the caller; the visibility outputs are computed with visible =
-// valid. A null anchor is the rebuild's order, bit for bit.
+// by the caller, so the delta mode writes nothing else. Zero anchors give
+// the rebuild's order, bit for bit.
+//
+// Subwarp variant of the delta mode (rga_subwarp_delta_kernel, m <= 32;
+// the port dispatches m <= cuda_sequence.M_SUBWARP to it): a warm tick's
+// delta rows are a few nodes wide (config 5's tick 2: 12,288 rows of 9),
+// so one warp a row leaves 23 of its 32 lanes idle through every
+// dependent step. This variant gives each row a group of W lanes (W the
+// next power of two >= m, one node a lane) and packs 32 / W rows into a
+// warp; the chain of dependent steps is the narrow kernel's, but each
+// gather is a shuffle within the group, the span reductions are
+// butterfly shuffles (or one reduction with the group's mask from 16
+// lanes up), and only the two scatters go through shared memory.
 //
 // Wide variant (rga_order_kernel, any m, after a torch child sort): one
 // thread block per job row, four planes of m+1 words with one
@@ -695,6 +706,7 @@ rga_narrow_kernel(const int32_t* __restrict__ parent,
       off_chain |= !on;
     }
   }
+  if (anchor != nullptr) return;   // delta mode: tree_pos is its output
   off_chain = __any_sync(kFull, off_chain);
 
   // ---- 4. node_at_pos in P0, shown flags in P1, ranks in P2 ----
@@ -792,6 +804,218 @@ int narrow_dispatch(const void* parent, const void* elem, const void* actor,
   if (m <= 128) return args(launch_narrow<4>);
   if (m <= 256) return args(launch_narrow<8>);
   return args(launch_narrow<16>);
+}
+
+
+// ---- subwarp variant: several short delta rows a warp ----------------------
+
+constexpr int kSubwarpWarps = 8;      // the most warps a CTA takes
+constexpr int kSubwarpMaxM = 32;  // the widest row (cuda_sequence.M_SUBWARP)
+
+// The minimum (or maximum) of v over the lane group of W lanes: butterfly
+// shuffles up to 8 lanes a group, where a reduction with the group's mask
+// would be issued once for each of the warp's 4 to 32 groups; one
+// reduction with the group's mask at 16 and 32.
+template <int W, bool MAX>
+__device__ __forceinline__ int group_reduce(int v, unsigned gmask) {
+  if constexpr (W >= 16) {
+    return MAX ? __reduce_max_sync(gmask, v) : __reduce_min_sync(gmask, v);
+  } else {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) {
+      const int u = __shfl_xor_sync(kFull, v, o, W);
+      v = MAX ? max(v, u) : min(v, u);
+    }
+    return v;
+  }
+}
+
+// The delta mode's order for rows of m <= W nodes, W a power of two:
+// 32 / W rows a warp, one lane group of W lanes a row, lane i of a group
+// holding node i in registers. The narrow kernel's steps with the same
+// keys and round counts, but every gather of a node's value is a
+// shuffle within the group (width W), so the doubling rounds touch no
+// shared memory and need no __syncwarp; only the two scatters (the
+// sorted order and each parent's first child) go through a per-row
+// shared slice of W words each. The rank count is m compares a lane,
+// one shuffled key each. A CTA takes up to kSubwarpWarps warps, fewer
+// when the rows would leave the card with fewer than two CTAs an SM.
+// Writes tree_pos only.
+template <int W>
+__global__ void __launch_bounds__(32 * kSubwarpWarps)
+rga_subwarp_delta_kernel(const int32_t* __restrict__ parent,
+                         const int32_t* __restrict__ anchor,
+                         const int32_t* __restrict__ elem,
+                         const int32_t* __restrict__ actor,
+                         const uint8_t* __restrict__ valid,
+                         int32_t* __restrict__ tree_pos, int K, int m,
+                         int rounds) {
+  constexpr int R = 32 / W;           // rows a warp
+  __shared__ int s_ord[kSubwarpWarps][32];
+  __shared__ int s_fc[kSubwarpWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int base = lane & ~(W - 1);   // the group's first lane
+  const int i = lane - base;          // the lane's node
+  const unsigned gmask =
+      W == 32 ? kFull : (((1u << (W & 31)) - 1u) << base);
+  const long long k0 =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + wid) * R;
+  if (k0 >= K) return;                // whole warps only
+  const long long k = k0 + lane / W;
+  const int n = m;
+  // lanes past the row's width or past the last row hold padding and
+  // take part in every shuffle
+  const bool live = k < K && i < n;
+  const size_t off = static_cast<size_t>(k) * m + i;
+  int par = 0, padj = n, ak = 0, el = 0, ac = 0;
+  bool val = false;
+  if (live) {
+    par = __ldg(parent + off);
+    el = __ldg(elem + off);
+    ac = __ldg(actor + off);
+    val = __ldg(valid + off) != 0;
+    padj = (val && i != 0) ? par : n;
+    // a child of slot 0 sorts by its anchor first
+    if (padj == 0) ak = __ldg(anchor + off);
+  }
+  const int pmin = group_reduce<W, false>(live ? padj : INT32_MAX, gmask);
+  const int pmax = group_reduce<W, true>(live ? padj : INT32_MIN, gmask);
+  const int kmin = group_reduce<W, false>(live ? ak : INT32_MAX, gmask);
+  const int kmax = group_reduce<W, true>(live ? ak : INT32_MIN, gmask);
+  const int emin = group_reduce<W, false>(live ? el : INT32_MAX, gmask);
+  const int emax = group_reduce<W, true>(live ? el : INT32_MIN, gmask);
+  const int amin = group_reduce<W, false>(live ? ac : INT32_MAX, gmask);
+  const int amax = group_reduce<W, true>(live ? ac : INT32_MIN, gmask);
+
+  // ---- 0. child sort: slot = number of nodes that sort before ----
+  const int bk = 32 - __clz(static_cast<uint32_t>(kmax) -
+                            static_cast<uint32_t>(kmin));
+  const int ba = 32 - __clz(static_cast<uint32_t>(amax) -
+                            static_cast<uint32_t>(amin));
+  const int be = 32 - __clz(static_cast<uint32_t>(emax) -
+                            static_cast<uint32_t>(emin));
+  // a group's key path follows its own row's spans (bits <= 31: one u32,
+  // <= 63: one u64, else the full key as two u64 words); the shuffles
+  // take the full mask, so every lane runs the u32 shuffle and, where
+  // any group of the warp needs them, the wider ones (n is the same for
+  // every row)
+  const int bits = pmin < 0 ? 64 : 32 - __clz(pmax) + bk + be + ba;
+  const int mode = bits <= 31 ? 0 : bits <= 63 ? 1 : 2;
+  const uint32_t k32 = mode == 0
+      ? pack_key<uint32_t>(padj, ak, el, ac, kmin, emax, amax, bk, be, ba)
+      : 0u;
+  const uint64_t k64 = mode == 1
+      ? pack_key<uint64_t>(padj, ak, el, ac, kmin, emax, amax, bk, be, ba)
+      : 0ull;
+  const uint64_t hi = key_hi(padj, ak);
+  const uint64_t lo = key_lo(el, ac);
+  const bool any_64 = __any_sync(kFull, mode == 1);
+  const bool any_wide = __any_sync(kFull, mode == 2);
+  int slot = 0;
+  for (int j = 0; j < n; ++j) {
+    // node j sorts before node i when key_j < key_i + (j < i): the keys
+    // stay below their type's top bit, so the +1 cannot wrap
+    const bool before = j < i;
+    const uint32_t j32 = __shfl_sync(kFull, k32, j, W);
+    if (mode == 0) slot += j32 < k32 + static_cast<uint32_t>(before);
+    if (any_64) {
+      const uint64_t j64 = __shfl_sync(kFull, k64, j, W);
+      if (mode == 1) slot += j64 < k64 + static_cast<uint64_t>(before);
+    }
+    if (any_wide) {
+      const uint64_t hj = __shfl_sync(kFull, hi, j, W);
+      const uint64_t lj = __shfl_sync(kFull, lo, j, W);
+      if (mode == 2) {
+        slot += (hj < hi) | ((hj == hi) & ((lj < lo) |
+                                           ((lj == lo) & before)));
+      }
+    }
+  }
+  int* ord = s_ord[wid] + base;
+  int* fc = s_fc[wid] + base;
+  fc[i] = -1;
+  if (live) ord[slot] = i;
+  __syncwarp();
+
+  // ---- 1. thread the tree: first child (shared), next sibling ----
+  const int o_prev = live && slot > 0 ? ord[slot - 1] : 0;
+  const int o_next = live && slot + 1 < n ? ord[slot + 1] : 0;
+  const int pa_prev = __shfl_sync(kFull, padj, o_prev, W);
+  const int pa_next = __shfl_sync(kFull, padj, o_next, W);
+  int ns = -1;
+  if (live) {
+    const bool start = slot == 0 || pa_prev != padj;
+    if (start && padj >= 0 && padj < n) fc[padj] = i;
+    // head and padding share a bucket
+    if (i != 0 && slot + 1 < n && pa_next == padj) ns = o_next;
+  }
+  __syncwarp();
+  const int first = fc[i];
+
+  // ---- 2. climb to the nearest ancestor-or-self with a sibling ----
+  int c = (ns >= 0 || i == 0 || !live) ? i : min(max(par, 0), n - 1);
+  for (int r = 0; r < rounds; ++r) c = __shfl_sync(kFull, c, c, W);
+  const int ns_c = __shfl_sync(kFull, ns, c, W);
+  int nx = n;                          // successor, or n the terminator
+  if (live && val) {
+    const int succ = first >= 0 ? first : ns_c;
+    nx = succ >= 0 ? succ : n;
+  }
+
+  // ---- 3. list-rank the chain (the terminator n: distance 0) ----
+  int d = 1;
+  for (int r = 0; r < rounds; ++r) {
+    const int dj = __shfl_sync(kFull, d, nx, W);
+    const int xj = __shfl_sync(kFull, nx, nx, W);
+    if (nx != n) {
+      d += dj;
+      nx = xj;
+    }
+  }
+  const int d0 = __shfl_sync(kFull, d, 0, W);
+  if (live) tree_pos[off] = d0 - d;
+}
+
+template <int W>
+int launch_subwarp(const int32_t* parent, const int32_t* anchor,
+                   const int32_t* elem, const int32_t* actor,
+                   const uint8_t* valid, int32_t* tree_pos, int K, int m,
+                   int rounds, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long warps = (static_cast<long long>(K) + 32 / W - 1) / (32 / W);
+  int wpc = kSubwarpWarps;
+  while (wpc > 1 && warps < 2LL * sms * wpc) wpc >>= 1;
+  const long long grid = (warps + wpc - 1) / wpc;
+  rga_subwarp_delta_kernel<W><<<static_cast<unsigned>(grid), 32 * wpc, 0,
+                                stream>>>(parent, anchor, elem, actor, valid,
+                                          tree_pos, K, m, rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The subwarp variant's dispatch on W, the next power of two >= m.
+int subwarp_dispatch(const int32_t* parent, const int32_t* anchor,
+                     const int32_t* elem, const int32_t* actor,
+                     const uint8_t* valid, int32_t* tree_pos, int K, int m,
+                     int rounds, cudaStream_t stream) {
+  if (m < 1 || m > kSubwarpMaxM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto go = [&](auto launcher) {
+    return launcher(parent, anchor, elem, actor, valid, tree_pos, K, m,
+                    rounds, stream);
+  };
+  if (m <= 1) return go(launch_subwarp<1>);
+  if (m <= 2) return go(launch_subwarp<2>);
+  if (m <= 4) return go(launch_subwarp<4>);
+  if (m <= 8) return go(launch_subwarp<8>);
+  if (m <= 16) return go(launch_subwarp<16>);
+  return go(launch_subwarp<32>);
 }
 
 
@@ -1188,17 +1412,29 @@ extern "C" int rga_narrow_launch(const void* parent, const void* elem,
 }
 
 // C entry point of the delta mode (bound with ctypes): the delta planes
-// parent/anchor/elem/actor int32 [K, m] and valid uint8 (bool) [K, m],
-// m <= 512; the narrow variant's outputs, of which the caller reads
-// tree_pos (the visibility outputs take visible = valid). Returns the
-// CUDA error of the launch (0 on success).
-extern "C" int rga_delta_launch(const void* parent, const void* anchor,
-                                const void* elem, const void* actor,
-                                const void* valid, void* tree_pos,
-                                void* vis_index, void* node_at_pos,
-                                void* length, int K, int m, int rounds,
-                                void* stream) {
+// parent/anchor/elem/actor int32 [K, m] and valid uint8 (bool) [K, m];
+// the output tree_pos int32 [K, m] (the caller reads its valid rows).
+// variant (cuda_sequence._DELTA_VARIANTS): 0 the narrow kernel (one warp
+// a row, m <= 512), 1 the subwarp kernel (32 / W rows a warp, m <= 32).
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int rga_delta_run(int variant, const void* parent,
+                             const void* anchor, const void* elem,
+                             const void* actor, const void* valid,
+                             void* tree_pos, int K, int m, int rounds,
+                             void* stream) {
+  if (K <= 0) return 0;
+  if (anchor == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1) {
+    return subwarp_dispatch(static_cast<const int32_t*>(parent),
+                            static_cast<const int32_t*>(anchor),
+                            static_cast<const int32_t*>(elem),
+                            static_cast<const int32_t*>(actor),
+                            static_cast<const uint8_t*>(valid),
+                            static_cast<int32_t*>(tree_pos), K, m, rounds,
+                            static_cast<cudaStream_t>(stream));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return narrow_dispatch(parent, elem, actor, anchor, valid, valid,
-                         tree_pos, vis_index, node_at_pos, length, K, m,
-                         rounds, stream);
+                         tree_pos, nullptr, nullptr, nullptr, K, m, rounds,
+                         stream);
 }

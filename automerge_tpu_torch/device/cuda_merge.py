@@ -27,8 +27,11 @@ Two implementations, bit-identical by construction:
   reads each op once into its shared slice, streams the clock block
   coalesced, and elects each field's winner with one 64-bit atomic
   maximum per op. The rest take one thread block each (in a global
-  scratch past the shared-memory cap). :func:`variant` says which a
-  shape takes.
+  scratch past the shared-memory cap). A batch of one or a few long
+  documents (replica sync's union) takes the split variant: each
+  document's ops cut into tiles over every SM, the slots in a global
+  scratch in the L2, four phases behind grid barriers in one
+  cooperative launch. :func:`variant` says which a shape takes.
 
 :func:`dispatch_resolve` launches the kernel for every CUDA tensor
 (raising if the build or the launch fails — there is no fallback) and
@@ -39,7 +42,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, cuda_grid
 from . import merge as _merge
 
 _I32 = torch.int32
@@ -51,16 +54,29 @@ _I32 = torch.int32
 # PERF.md)
 N_WARP_SCALAR = 512
 
+# a batch of at most this many documents of N ops, N up to the band's
+# bound (pairs of a bound, None for the open last band, and a document
+# count), takes the split variant when the caller names D: the crossover
+# table measured on an H100 (tools/torch_kernel_ab.py --split, PERF.md)
+# at N from 512 to 65,536, D from 1 to 528, S in {32, 4,096} and A in
+# {8, 16} — each band the most documents at which the split variant won
+# at all four (S, A); below 512 ops it was not measured
+SPLIT_BANDS = ((511, 0), (1024, 64), (4096, 264), (None, 528))
+# the most slots (documents times segments) a split launch indexes: its
+# stash code keeps the slot in 28 bits (csrc/flatmap_resolve.cu)
+SPLIT_MAX_SLOTS = (1 << 28) - 1
+
 # launches of the CUDA kernel since the last reset by (mode, variant):
 # mode 'resolve' (the kernel's one mode), variant as :func:`variant`
 # names it; counted in resolve_cuda where the kernel launches and
 # nowhere else — the proof that a run went through it
 launches = {}
-# the variant of the latest launch ('warp', 'block' or 'block-global')
+# the variant of the latest launch ('warp', 'block', 'block-global' or
+# 'split')
 last_variant = None
 
 # variant codes of the kernel's C entry point
-_VARIANTS = {'warp': 0, 'block': 1, 'block-global': 2}
+_VARIANTS = {'warp': 0, 'block': 1, 'block-global': 2, 'split': 3}
 
 # variant, seg_id, actor, seq, clock, is_del, valid, surviving, winner,
 # seg_max_actor, scratch, D, N, S, A, stream
@@ -83,17 +99,44 @@ def warp_slice_bytes(N, S, A):
     return r16(8 * S) + r16(4 * S * A) + 12 * ((N + 3) // 4 * 4)
 
 
-def variant(N, S, A, force=None):
+def split_scratch_words(D, S, A):
+    """int32 words of the split variant's scratch: ``D*S`` int64 winner
+    keys, then ``D*S*A`` clock maxima."""
+    return D * S * (A + 2)
+
+
+def split_fits(D, N, S):
+    """Whether one split launch takes ``D`` documents of ``N`` ops and
+    ``S`` segments: its ops within one grid launch's slots
+    (``cuda_grid.GRID_MAX_SLOTS``), its document slots within
+    :data:`SPLIT_MAX_SLOTS`."""
+    return D * N <= cuda_grid.GRID_MAX_SLOTS and D * S <= SPLIT_MAX_SLOTS
+
+
+def variant(N, S, A, force=None, D=None):
     """The kernel variant a launch of ``N`` ops per document, ``S``
-    segments and ``A`` actors takes: ``'warp'`` (one warp per document)
+    segments and ``A`` actors takes: ``'split'`` (each document over
+    many CTAs) when the caller names the document count ``D`` and
+    :data:`SPLIT_BANDS` sends ``D`` documents of ``N`` ops to it (and
+    :func:`split_fits`); else ``'warp'`` (one warp per document)
     when :func:`warp_slice_bytes` fits a CTA and ``A % 4 == 0 or N <=
     N_WARP_SCALAR``, else ``'block'`` (one thread block per document),
     ``'block-global'``
     when the block's ``(S+1)*(A+2)`` slot words exceed the shared-memory
-    cap. ``force`` ('warp' or 'block') overrides the bounds; a forced
-    warp whose slice cannot fit a CTA raises."""
-    if force not in (None, 'warp', 'block'):
+    cap. ``D=None`` gives the answer without the split variant.
+    ``force`` ('warp', 'block' or 'split') overrides
+    the bounds; a forced warp whose slice cannot fit a CTA, or a forced
+    split without ``D`` or past :func:`split_fits`, raises."""
+    if force not in (None, 'warp', 'block', 'split'):
         raise ValueError(f'unknown flat-map variant {force!r}')
+    if force == 'split':
+        if D is None or not split_fits(D, N, S):
+            raise ValueError(f'the split variant cannot take D={D} N={N} '
+                             f'S={S}')
+        return force
+    if force is None and D is not None and split_fits(D, N, S) and \
+            D <= cuda_grid.band_rows(SPLIT_BANDS, N):
+        return 'split'
     fits = warp_slice_bytes(N, S, A) <= cuda_build.SMEM_LIMIT
     v = force or ('warp' if fits and (A % 4 == 0 or N <= N_WARP_SCALAR)
                   else 'block')
@@ -113,7 +156,9 @@ def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
     version's dict: ``surviving`` bool [D, N], ``winner`` and
     ``seg_max_actor`` int32 [D, S] (empty segments -1 / INT32_MIN).
     ``force`` picks a variant regardless of the shape (see
-    :func:`variant`; the tests use it).
+    :func:`variant`; the tests use it). The split variant works on a
+    global scratch of :func:`split_scratch_words` int32, which it
+    fills itself.
 
     Bound: per call the kernel must read ``D*N*(14 + 4*A)`` bytes and
     write ``D*N + 8*D*S`` bytes, with O(D*N*A) integer maxima — bound by
@@ -140,11 +185,16 @@ def resolve_cuda(seg_id, actor, seq, clock, is_del, valid, *,
            'seg_max_actor': seg_max_actor}
     if D == 0:                  # no documents: nothing to launch
         return out
-    var = variant(N, S, A, force)
+    var = variant(N, S, A, force, D=D)
     fn = cuda_build.load('flatmap_resolve', 'flatmap_resolve_run',
                          _ARGTYPES)
-    scratch = torch.empty((D, (S + 1) * (A + 2)), dtype=_I32, device=dev) \
-        if var == 'block-global' else None
+    scratch = None
+    if var == 'block-global':
+        scratch = torch.empty((D, (S + 1) * (A + 2)), dtype=_I32,
+                              device=dev)
+    elif var == 'split':
+        scratch = torch.empty(split_scratch_words(D, S, A), dtype=_I32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(_VARIANTS[var], seg_id.data_ptr(), actor.data_ptr(),

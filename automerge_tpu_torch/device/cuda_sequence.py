@@ -27,10 +27,14 @@ ctypes; :func:`variant` says which one a shape takes:
   rows (a long text, a replayed editing trace) that would leave all but
   a few SMs idle with one block each. Its plain version is
   ``sequence._order_from_sorted_plain``.
-* :func:`rga_delta_cuda` — the delta mode of the narrow variant, behind
-  the incremental index update: the same kernel over one tick's delta
-  forest, with the anchor plane as one more sort key word between the
-  parent and the elem. Its plain version is
+* :func:`rga_delta_cuda` — the delta mode, behind the incremental
+  index update: one tick's delta forest, with the anchor plane as one
+  more sort key word between the parent and the elem, ``tree_pos`` its
+  only output. Rows up to :data:`M_SUBWARP` nodes (a warm tick's few
+  new nodes a document) take the subwarp variant: 32 / W rows a warp,
+  one group of W lanes a row (W the next power of two at or above the
+  width), every gather a shuffle within the group; wider rows the
+  narrow kernel, one warp a row. Its plain version is
   ``sequence._rga_delta_order_plain``; wider delta planes take the
   PyTorch sort with the anchor key and the wide variant.
 
@@ -53,6 +57,12 @@ _I32 = torch.int32
 # own limit of 512 nodes (a lane's 16 register slots; PERF.md)
 M_NARROW = 512
 
+# delta rows up to this many nodes take the subwarp variant, its own
+# limit (a warp): on an H100 it beats the narrow kernel's delta mode at
+# every width up to it, at 1,024 and at 12,288 rows (1.03-5.7x;
+# tools/torch_kernel_ab.py --delta, PERF.md)
+M_SUBWARP = 32
+
 # wider rows take the grid variant while there are at most this many of
 # them at a width up to the band's bound, else one block per row: the
 # crossover table measured on an H100 (tools/torch_kernel_ab.py
@@ -64,12 +74,12 @@ GRID_BANDS = ((8192, 0), (10240, 2), (12799, 8), (None, 32))
 
 # launches of the CUDA kernels since the last reset by (mode, variant):
 # mode 'order' (rga_order_cuda, order_from_sorted_cuda) or 'delta'
-# (rga_delta_cuda), variant as :func:`variant` names it; counted where a
-# kernel launches and nowhere else — the proof that a run went through
-# them
+# (rga_delta_cuda), variant as :func:`variant` or :func:`delta_variant`
+# names it; counted where a kernel launches and nowhere else — the proof
+# that a run went through them
 launches = {}
-# the variant of the latest launch ('narrow', 'wide', 'wide-global' or
-# 'wide-grid')
+# the variant of the latest launch ('narrow', 'subwarp', 'wide',
+# 'wide-global' or 'wide-grid')
 last_variant = None
 
 # order, parent_adj, parent, visible, valid, tree_pos, vis_index,
@@ -80,9 +90,12 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # length, K, m, rounds, stream
 _NARROW_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
     [ctypes.c_void_p]
-# parent, anchor, elem, actor, valid, tree_pos, vis_index, node_at_pos,
-# length, K, m, rounds, stream
-_DELTA_ARGTYPES = _NARROW_ARGTYPES
+# variant, parent, anchor, elem, actor, valid, tree_pos, K, m, rounds,
+# stream
+_DELTA_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# variant codes of rga_delta_run
+_DELTA_VARIANTS = {'narrow': 0, 'subwarp': 1}
 
 
 def reset_launches():
@@ -129,6 +142,15 @@ def variant(K, m):
     of width ``m``: ``'narrow'`` up to :data:`M_NARROW` nodes, else
     :func:`sorted_variant`'s."""
     return 'narrow' if m <= M_NARROW else sorted_variant(K, m)
+
+
+def delta_variant(K, m):
+    """The kernel variant ``sequence._rga_delta_order_batched`` takes on
+    the card at ``K`` rows of width ``m``: ``'subwarp'`` up to
+    :data:`M_SUBWARP` nodes, else :func:`variant`'s (``'narrow'`` up to
+    :data:`M_NARROW`, past it the sort with the anchor key and a wide
+    variant)."""
+    return 'subwarp' if m <= M_SUBWARP else variant(K, m)
 
 
 def _outputs(K, m, dev):
@@ -178,44 +200,48 @@ def rga_order_cuda(parent, elem, actor, visible, valid, rounds):
     return out
 
 
-def rga_delta_cuda(parent, anchor, elem, actor, valid, rounds):
-    """Launch the narrow RGA kernel in its delta mode on contiguous CUDA
-    [K, m] delta planes (m <= :data:`M_NARROW`): int32 ``parent``,
-    ``anchor``, ``elem``, ``actor`` and bool ``valid``. Returns int32
-    ``tree_pos`` [K, m], equal to ``sequence._rga_delta_order_plain`` on
-    the valid rows (the rest is padding, which no caller reads).
+def rga_delta_cuda(parent, anchor, elem, actor, valid, rounds,
+                   force=None):
+    """Launch the RGA kernel's delta mode on contiguous CUDA [K, m] delta
+    planes (m <= :data:`M_NARROW`): int32 ``parent``, ``anchor``,
+    ``elem``, ``actor`` and bool ``valid``. Returns int32 ``tree_pos``
+    [K, m], equal to ``sequence._rga_delta_order_plain`` on the valid
+    rows (the rest is padding, which no caller reads). The variant is
+    :func:`delta_variant`'s, or ``force`` (``'narrow'``, or
+    ``'subwarp'`` up to :data:`M_SUBWARP` nodes).
 
     Bound: per call the kernel must read ``K*m*17`` bytes and write
-    ``K*m*4`` (the tree positions; it also writes the visibility
-    outputs, ``K*m*8 + K*4`` bytes, which the caller drops); a delta
-    plane is a few dozen nodes wide, so each row's chain of dependent
-    shared-memory steps sets the time."""
+    ``K*m*4`` (the tree positions, its only output); a delta plane is a
+    few nodes wide, so each row's chain of dependent steps sets the
+    time, and the subwarp variant runs several rows' chains in one warp
+    at once."""
     K, m = parent.shape
     dev = parent.device
     if dev.type != 'cuda':
         raise ValueError('rga_delta_cuda needs CUDA tensors')
     if not 1 <= m <= M_NARROW or rounds < 1:
         raise ValueError(f'bad delta RGA shape m={m} rounds={rounds}')
+    v = force or delta_variant(K, m)
+    if v not in _DELTA_VARIANTS or (v == 'subwarp' and m > M_SUBWARP):
+        raise ValueError(f'the delta mode has no variant {v!r} at m={m}')
     for t, name in ((parent, 'parent'), (anchor, 'anchor'), (elem, 'elem'),
                     (actor, 'actor')):
         cuda_build.check(t, name, _I32, (K, m), dev)
     cuda_build.check(valid, 'valid', torch.bool, (K, m), dev)
-    out = _outputs(K, m, dev)
+    tree_pos = torch.empty((K, m), dtype=_I32, device=dev)
     if K == 0:                  # no job rows: nothing to launch
-        return out['tree_pos']
-    fn = cuda_build.load('rga_order', 'rga_delta_launch', _DELTA_ARGTYPES)
+        return tree_pos
+    fn = cuda_build.load('rga_order', 'rga_delta_run', _DELTA_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(parent.data_ptr(), anchor.data_ptr(), elem.data_ptr(),
-                 actor.data_ptr(), valid.data_ptr(),
-                 out['tree_pos'].data_ptr(), out['vis_index'].data_ptr(),
-                 out['node_at_pos'].data_ptr(), out['length'].data_ptr(),
-                 K, m, rounds, stream)
+        err = fn(_DELTA_VARIANTS[v], parent.data_ptr(), anchor.data_ptr(),
+                 elem.data_ptr(), actor.data_ptr(), valid.data_ptr(),
+                 tree_pos.data_ptr(), K, m, rounds, stream)
     if err != 0:
-        raise RuntimeError(f'rga_order delta kernel launch failed: CUDA '
-                           f'error {err}')
-    _count('delta', 'narrow')
-    return out['tree_pos']
+        raise RuntimeError(f'rga_order delta kernel launch failed ({v} '
+                           f'variant): CUDA error {err}')
+    _count('delta', v)
+    return tree_pos
 
 
 def order_from_sorted_cuda(order, parent_adj, parent, visible, valid,

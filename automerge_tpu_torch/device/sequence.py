@@ -263,11 +263,11 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
     the JAX `_rga_delta_order_batched` on every valid row.
 
     CUDA planes always go through a kernel (a build or launch failure
-    raises): the narrow RGA kernel's delta mode up to
-    ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort with the
-    anchor key and the wide kernel (its variant by
-    ``cuda_sequence.variant(K, m)``). CPU planes take
-    `_rga_delta_order_plain`."""
+    raises): the RGA kernel's delta mode up to ``cuda_sequence.M_NARROW``
+    nodes (its subwarp variant up to ``cuda_sequence.M_SUBWARP``, else
+    the narrow one), else the PyTorch child sort with the anchor key and
+    the wide kernel (the variant by ``cuda_sequence.delta_variant(K,
+    m)``). CPU planes take `_rga_delta_order_plain`."""
     if parent.device.type != 'cuda':
         return _rga_delta_order_plain(parent, anchor, elem, actor, valid)
     m = parent.shape[1]

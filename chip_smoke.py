@@ -22,18 +22,20 @@ exits non-zero without a result line):
    and then the grid variant for a few wide rows, one block per row for
    many) and each variant directly (narrow and wide up to m = 512, wide
    and grid above); the RGA kernel's delta mode on seeded delta forests
-   (anchors up to 2^22 - 1, elems past 2^15) at widths 9, 33, 129 and
-   513 (the last through the sort with the anchor key + a wide
-   variant); the edit stream's wide format at a long text's width (m
+   (anchors up to 2^22 - 1, elems past 2^15) at every width up to 33
+   and at 129 and 513 (the last through the sort with the anchor key +
+   a wide variant), its narrow and subwarp variants forced; the edit
+   stream's wide format at a long text's width (m
    past 32,768) and at m <= 512, each forced onto every variant, and
    its grid variant at 1 and 3 rows of m in {513, 32,768, 65,536,
    300,000}, packed and wide, e_pad 1, 8 and m; the C side's
    shared-memory fits against the Python dispatch's; the flat-map
-   resolve's dispatch and both its variants
-   (warp and block, forced) on ``gen_docset_workload(cross_clock=True)``
-   batches up to the flagship 10,240 docs x 128 ops x 8 actors and
-   10,241 docs, and a 6,000-segment shape on the block variant's global
-   memory;
+   resolve's dispatch and its variants (warp, block and split, forced)
+   on
+   ``gen_docset_workload(cross_clock=True)`` batches up to the flagship
+   10,240 docs x 128 ops x 8 actors and 10,241 docs, a 6,000-segment
+   shape on the block variant's global memory, and replica sync's one
+   long document (65,536 ops, 16 actors, 4,096 segments);
 4. the general engine's tick: a 10,240-document collab-server fleet
    (about 99 ops per document, about 1.01M ops in one fused apply)
    through ``GeneralDocSet(device='cuda').apply_changes_batch`` twice
@@ -42,7 +44,8 @@ exits non-zero without a result line):
    seeded subset of documents in a fleet of their own) must give equal
    views, and the edit-stream and RGA kernels' launch counters must rise
    on every tick; tick 2 (a concurrent front insert) must take the
-   incremental index update through the RGA kernel's delta mode;
+   incremental index update through the RGA kernel's delta mode, its
+   subwarp variant (m = 9);
    4b. a long text (the JAX package's ``bench.py:971`` lane at 32,760
    chars, then 48 ticks of 8 appended chars with a delete every 5th)
    through ``GeneralDocSet(device='cuda')`` in two arms — incremental
@@ -135,14 +138,17 @@ exits non-zero without a result line):
    elems the fleet already has, so it must fall back to the rebuild):
    device busy time against the tick's wall time (the idle share) and
    the kernels that take it;
-7. for every launch key (kernel, mode, variant) the main paths launched
-   (phases 4 to 5d): every input the paths handed that launch, as
-   they handed it over, through the dispatch (which must take exactly
+7. the widths (m) of every delta-orderer call the main paths made on the
+   card; for every launch key (kernel, mode, variant) the main paths
+   launched (phases 4 to 5d): every input the paths handed that launch,
+   as they handed it over, through the dispatch (which must take exactly
    that launch) against the plain version, bit for bit; then, at the
    largest of those inputs, the kernel and the plain version of what it
    computes, each timed from a CUDA graph (median, min and max of 5
-   replays) and eagerly, the dispatch called eagerly, and a wide row's
-   other variant (grid or one block per row) from a graph, beside the
+   replays) and eagerly, the dispatch called eagerly, and the parent
+   variant beside a redesigned one from a graph (a wide row's grid or
+   one block per row, the delta mode's narrow variant beside its subwarp
+   one, the flat-map block variant beside the split one), beside the
    byte bound and the card's name and power limit; the JSON kernel line
    (one row per launch key); then the result line.
 
@@ -153,6 +159,7 @@ just after it. The workload generators (``gen_mixed_docs``,
 ``long_text_applies``) are shared with the tests.
 """
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -1107,16 +1114,16 @@ def _capturing(into):
 
     def delta(*a):
         if a[0].is_cuda:
-            v = cuda_sequence.variant(*a[0].shape)
-            put(('rga_order', 'delta' if v == 'narrow' else 'order', v),
-                'delta', a)
+            v = cuda_sequence.delta_variant(*a[0].shape)
+            put(('rga_order', 'delta' if v in ('narrow', 'subwarp')
+                 else 'order', v), 'delta', a)
         return real['delta'](*a)
 
     def fm(*a, **kw):
         if a[0].is_cuda:
-            N, S, A = a[0].shape[1], kw['num_segments'], a[3].shape[2]
+            (D, N), S, A = a[0].shape, kw['num_segments'], a[3].shape[2]
             put(('flatmap_resolve', 'resolve',
-                 cuda_merge.variant(N, S, A, kw.get('force'))), 'fm',
+                 cuda_merge.variant(N, S, A, kw.get('force'), D=D)), 'fm',
                 (a, kw))
         return real['fm'](*a, **kw)
 
@@ -1221,25 +1228,30 @@ def _check_rga_kernel(dev):
 def _check_delta_kernel(dev):
     """Phase 3d: the RGA kernel's delta mode against the delta orderer's
     plain version (tree_pos on valid rows) on seeded delta forests —
-    anchors up to 2^22 - 1, elems past 2^15 — at widths 9, 33, 129 and
-    513 through the dispatch (the narrow kernel's delta mode, or the sort
-    with the anchor key + wide kernel for 513) and, up to ``M_NARROW``,
-    the narrow kernel directly."""
+    anchors up to 2^22 - 1, elems past 2^15 — at every width up to 33
+    and at 129 and 513 through the dispatch (the subwarp variant up to
+    ``M_SUBWARP``, the narrow one above, the sort with the anchor key +
+    wide kernel for 513) and each variant directly up to its limit
+    (``M_NARROW``, ``M_SUBWARP``)."""
     import torch
     from automerge_tpu_torch.device import cuda_sequence, sequence
     rng = np.random.default_rng(2468)
-    for K, m in ((1024, 9), (512, 33), (128, 129), (16, 513)):
+    for K, m in ((1024, 9), (12288, 9), *((300, w) for w in range(1, 34)),
+                 (128, 129), (16, 513)):
         planes = [torch.as_tensor(p).to(dev)
                   for p in delta_forests(rng, K, m)]
         valid = planes[4]
         want = sequence._rga_delta_order_plain(*planes)
         got = {'dispatch': sequence._rga_delta_order_batched(*planes)}
         ran = cuda_sequence.last_variant
-        if ran != cuda_sequence.variant(K, m):
+        if ran != cuda_sequence.delta_variant(K, m):
             raise AssertionError(f'rga delta at m={m}: ran {ran}')
-        if m <= cuda_sequence.M_NARROW:
-            got['narrow'] = cuda_sequence.rga_delta_cuda(
-                *planes[:4], valid, rounds=sequence._ceil_log2(m) + 1)
+        rounds = sequence._ceil_log2(m) + 1
+        for v in ('narrow', 'subwarp'):
+            if m <= (cuda_sequence.M_SUBWARP if v == 'subwarp'
+                     else cuda_sequence.M_NARROW):
+                got[v] = cuda_sequence.rga_delta_cuda(
+                    *planes[:4], valid, rounds=rounds, force=v)
         torch.cuda.synchronize()
         for how, out in got.items():
             if out.dtype != want.dtype or \
@@ -1522,7 +1534,7 @@ def _long_text_path(card, inputs):
     if not any(k[:2] == ('edit_stream', 'wide') for k in counts['launches']):
         raise AssertionError('the long text did not launch the wide edit '
                              'stream')
-    if not counts['launches'].get(('rga_order', 'delta', 'narrow')):
+    if not any(k[:2] == ('rga_order', 'delta') for k in counts['launches']):
         raise AssertionError('the long text did not launch the RGA delta '
                              'mode')
     return counts, applies, cpu_diffs
@@ -1556,10 +1568,13 @@ def _async_path(card, applies, cpu_diffs):
 
 def _check_flatmap_kernel(dev):
     """Phase 3c: the flat-map kernel's variants (the dispatch's pick, and
-    the warp and block variants forced) against the plain version on
+    the warp, block and split variants forced) against the plain
+    version on
     ``gen_docset_workload(cross_clock=True)`` at the Pallas tests'
-    shapes, the flagship shape (and one document more: a partial CTA)
-    and a slot-heavy shape on the block variant's global memory; the
+    shapes, the flagship shape (and one document more: a partial CTA),
+    a slot-heavy shape on the block variant's global memory, replica
+    sync's union of one long document (the split variant's main-path
+    shape) and a few documents with A % 4 != 0 or one segment; the
     first document's first ops carry out-of-range segment ids."""
     import torch
     from automerge_tpu_torch.device import cuda_build, cuda_merge, merge
@@ -1568,15 +1583,17 @@ def _check_flatmap_kernel(dev):
                              (8, 128, 8, 32, 128), (9, 257, 3, 40, 257),
                              (10240, 128, 8, 32, 32),
                              (10241, 128, 8, 32, 32),
-                             (4, 64, 8, 6000, 6000)):
+                             (4, 64, 8, 6000, 6000),
+                             (1, 65536, 16, 4096, 4096),
+                             (3, 4096, 3, 256, 256), (2, 31, 4, 1, 1)):
         args = [torch.as_tensor(a).to(dev) for a in gen_docset_workload(
             n_docs=D, n_ops=N, n_actors=A, n_keys=keys, seed=D + N,
             del_p=0.1, invalid_p=0.1, cross_clock=True)]
         args[0][0, :3] = torch.tensor([-1, S, -S - 2], dtype=torch.int32)
         want = merge.resolve_assignments_batch(*args, num_segments=S)
-        picked = cuda_merge.variant(N, S, A)
+        picked = cuda_merge.variant(N, S, A, D=D)
         ran = []
-        for force in (None, 'warp', 'block'):
+        for force in (None, 'warp', 'block', 'split'):
             if force == 'warp' and cuda_merge.warp_slice_bytes(N, S, A) > \
                     cuda_build.SMEM_LIMIT:
                 continue
@@ -1802,7 +1819,11 @@ def _kernel_calls(key, kind, args):
             raw = [t.to(i32).contiguous()
                    for t in (parent, anchor, elem, actor)]
             c['kernel'] = lambda: cuda_sequence.rga_delta_cuda(
-                *raw, flags[1], rounds=rounds)
+                *raw, flags[1], rounds=rounds, force=key[2])
+            # the one-warp-a-row delta mode beside the subwarp variant
+            if key[2] == 'subwarp':
+                c['extra']['narrow'] = lambda: cuda_sequence.rga_delta_cuda(
+                    *raw, flags[1], rounds=rounds, force='narrow')
         else:
             srt = [t.to(i32).contiguous() for t in sequence._child_sort(
                 parent, elem, actor, valid, anchor)]
@@ -1835,9 +1856,12 @@ def _kernel_calls(key, kind, args):
             *a, num_segments=S)
         c['kernel_plain'] = c['plain']
         c['err'] = lambda got, want: _bits_err(got, want, str(key))
+        # one block a document beside the other variants (at a slot-heavy
+        # shape its global-memory form, the split variant's parent)
         if key[2] != 'block':
-            c['extra']['block'] = lambda: cuda_merge.resolve_cuda(
-                *a, num_segments=S, force='block')
+            c['extra'][cuda_merge.variant(N, S, A, 'block')] = \
+                lambda: cuda_merge.resolve_cuda(*a, num_segments=S,
+                                                force='block')
         # seg_id, actor, seq int32 + clock int32 [D, N, A] + is_del,
         # valid bool in; surviving bool + winner, seg_max_actor int32 out
         c['bytes'] = D * N * (4 * 3 + 2) + D * N * A * 4 + D * N + \
@@ -2847,12 +2871,12 @@ def main():
                 raise AssertionError(f'tick {k + 1} did not launch the RGA '
                                      f'kernel')
             if k == 1 and (
-                    not added.get(('rga_order', 'delta', 'narrow'))
+                    not added.get(('rga_order', 'delta', 'subwarp'))
                     or metrics.counters.get(
                         'device_idx_incremental_applies', 0) != incr0 + 1):
                 raise AssertionError('tick 2 did not take the incremental '
                                      'index update through the RGA '
-                                     'kernel\'s delta mode')
+                                     'kernel\'s delta mode (subwarp)')
             diffs_gpu.append(diffs)
             apply_ms.append(t_apply)
             enc = _span_sum(spans, 'admit.encode')
@@ -2942,6 +2966,16 @@ def main():
                    fleet_counts, mesh_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
+    # the widths the delta orderer was handed, over every call the paths
+    # made on the card (the subwarp variant's bound rests on them)
+    widths = collections.Counter(
+        a[0].shape[1] for entries in inputs.values()
+        for kind, a in entries if kind == 'delta')
+    print(f'delta orderer widths ({card}): m -> calls over all '
+          f'{sum(widths.values())} calls on the main paths, '
+          f'{sum(n for k, n in launched.items() if k[1] == "delta")} of '
+          f'them delta-mode launches: {dict(sorted(widths.items()))}',
+          flush=True)
     kernels = [_kernel_row(key, n, inputs.get(key), card)
                for key, n in sorted(launched.items())]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -16,6 +16,8 @@ package is imported
 inside the tests that compare with it, so the card's cases need only the
 port."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -156,6 +158,44 @@ def test_rga_plain_matches_jax_on_one_long_row(tree):
     want = js.rga_order_batch(*(jnp.asarray(p) for p in planes))
     got = sequence._rga_order_plain(*(torch.as_tensor(p) for p in planes))
     _same({k: v.numpy() for k, v in got.items()}, want, planes[4])
+
+
+@functools.cache
+def _jax_delta_order():
+    """The JAX package's ``_rga_delta_order_batched`` under one
+    ``jax.jit`` (one XLA compile a width, not one a primitive)."""
+    import jax
+    from automerge_tpu.device import sequence as js
+    return jax.jit(js._rga_delta_order_batched)
+
+
+@pytest.mark.parametrize('m', range(1, 17))
+def test_delta_plain_matches_jax_at_short_widths(m):
+    """The delta orderer's plain version against the JAX package's
+    ``_rga_delta_order_batched`` at every width the subwarp variant takes
+    on the main paths (seeded delta forests: anchors up to 2^22 - 1,
+    anchor and elem ties, garbage in the padding); tree_pos on valid
+    rows."""
+    import jax.numpy as jnp
+    planes = delta_forests(np.random.default_rng(100 + m), 6, m)
+    want = np.asarray(_jax_delta_order()(*[jnp.asarray(p)
+                                           for p in planes]))
+    got = sequence._rga_delta_order_batched(
+        *[torch.as_tensor(p) for p in planes]).numpy()
+    valid = planes[4]
+    assert want.dtype == got.dtype
+    assert np.array_equal(want[valid], got[valid])
+
+
+def test_delta_variant_bounds():
+    assert 1 <= cuda_sequence.M_SUBWARP <= 32
+    assert cuda_sequence.delta_variant(12288, 9) == 'subwarp'   # tick 2
+    assert cuda_sequence.delta_variant(1, 1) == 'subwarp'
+    m = cuda_sequence.M_SUBWARP
+    assert cuda_sequence.delta_variant(12288, m) == 'subwarp'
+    assert cuda_sequence.delta_variant(12288, m + 1) == 'narrow'
+    assert cuda_sequence.delta_variant(4, 513) == \
+        cuda_sequence.variant(4, 513)
 
 
 def test_cpu_delta_planes_take_the_plain_version():
@@ -345,8 +385,9 @@ def _delta_planes(K, m, dev, seed=0):
 @pytest.mark.parametrize('K,m', [(64, 9), (37, 33), (16, 129), (4, 513),
                                  (10240, 9), (1, 4096)])
 def test_cuda_delta_dispatch_matches_plain(cuda_device, K, m):
-    """The delta orderer on the card: the narrow kernel's delta mode up
-    to M_NARROW, the sort with the anchor key + wide kernel above; the
+    """The delta orderer on the card: the delta mode up to M_NARROW (its
+    subwarp variant up to M_SUBWARP), the sort with the anchor key + wide
+    kernel above; the
     anchors reach 2^22 - 1 and the elems pass 2^15, so the packed key
     takes its 64-bit word or the full key."""
     planes = _delta_planes(K, m, cuda_device)
@@ -354,8 +395,8 @@ def test_cuda_delta_dispatch_matches_plain(cuda_device, K, m):
     before = dict(cuda_sequence.launches)
     got = sequence._rga_delta_order_batched(*planes)
     torch.cuda.synchronize()
-    v = cuda_sequence.variant(K, m)
-    key = ('delta' if v == 'narrow' else 'order', v)
+    v = cuda_sequence.delta_variant(K, m)
+    key = ('delta' if v in ('narrow', 'subwarp') else 'order', v)
     assert cuda_sequence.last_variant == v
     assert cuda_sequence.launches[key] == before.get(key, 0) + 1
     valid = planes[4]
@@ -371,7 +412,8 @@ def test_cuda_delta_narrow_at_every_width(cuda_device, m):
     want = sequence._rga_delta_order_plain(*planes)
     before = cuda_sequence.launches.get(('delta', 'narrow'), 0)
     got = cuda_sequence.rga_delta_cuda(*planes[:4], planes[4],
-                                       rounds=sequence._ceil_log2(m) + 1)
+                                       rounds=sequence._ceil_log2(m) + 1,
+                                       force='narrow')
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'narrow'
     assert cuda_sequence.launches[('delta', 'narrow')] == before + 1
@@ -392,6 +434,77 @@ def test_cuda_delta_with_zero_anchors_is_the_rebuild_order(cuda_device):
                                        elem, actor, valid, rounds=rounds)
     torch.cuda.synchronize()
     assert torch.equal(got[valid], want[valid])
+
+
+def _wide_key_delta(planes, rng):
+    """Delta planes whose elems and actors span the full int32 range, so
+    that with the anchors no packed key fits 63 bits: the full two-word
+    key."""
+    parent, anchor, elem, actor, valid = planes
+    elem = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, elem.shape,
+                                        dtype=np.int64).astype(np.int32))
+    actor = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, actor.shape,
+                                         dtype=np.int64).astype(np.int32))
+    return [parent, anchor, elem.to(parent.device),
+            actor.to(parent.device), valid]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 3, 12288])
+@pytest.mark.parametrize('m', range(1, 33))
+def test_cuda_delta_subwarp_matches_plain(cuda_device, K, m):
+    """The subwarp variant, forced, at every width it takes and at one
+    row, a partial warp and config 5's tick-2 row count, against the
+    plain version and the narrow variant (tree_pos on valid rows): the
+    anchors reach 2^22 - 1 (the packed 64-bit key), and a second draw
+    spans full int32 elems and actors (the full key)."""
+    rng = np.random.default_rng(K * 64 + m)
+    rounds = sequence._ceil_log2(m) + 1
+    for planes in (_delta_planes(K, m, cuda_device, seed=2),
+                   _wide_key_delta(_delta_planes(K, m, cuda_device, seed=3),
+                                   rng)):
+        want = sequence._rga_delta_order_plain(*planes)
+        before = cuda_sequence.launches.get(('delta', 'subwarp'), 0)
+        got = cuda_sequence.rga_delta_cuda(*planes[:4], planes[4],
+                                           rounds=rounds, force='subwarp')
+        narrow = cuda_sequence.rga_delta_cuda(*planes[:4], planes[4],
+                                              rounds=rounds, force='narrow')
+        torch.cuda.synchronize()
+        assert cuda_sequence.launches[('delta', 'subwarp')] == before + 1
+        valid = planes[4]
+        assert got.dtype == torch.int32
+        assert torch.equal(got[valid], want[valid])
+        assert torch.equal(narrow[valid], want[valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 2, 5, 9, 16, 17, 32])
+def test_cuda_delta_subwarp_with_zero_anchors_is_the_rebuild_order(
+        cuda_device, m):
+    """With every anchor 0 the subwarp variant's tree_pos equals the
+    narrow kernel's rebuild order on the same tree (random, prepend and
+    chain trees; the packed 32-bit key)."""
+    rounds = sequence._ceil_log2(m) + 1
+    for tree in ('random', 'prepend', 'chain'):
+        parent, elem, actor, visible, valid = _card_planes(tree, 300, m,
+                                                           cuda_device)
+        want = cuda_sequence.rga_order_cuda(
+            parent, elem, actor, valid, valid, rounds=rounds)['tree_pos']
+        got = cuda_sequence.rga_delta_cuda(
+            parent, torch.zeros_like(parent), elem, actor, valid,
+            rounds=rounds, force='subwarp')
+        torch.cuda.synchronize()
+        assert torch.equal(got[valid], want[valid]), tree
+
+
+@pytest.mark.cuda
+def test_cuda_delta_subwarp_refuses_wide_rows(cuda_device):
+    planes = _delta_planes(4, 33, cuda_device)
+    before = dict(cuda_sequence.launches)
+    with pytest.raises(ValueError):
+        cuda_sequence.rga_delta_cuda(*planes[:4], planes[4], rounds=7,
+                                     force='subwarp')
+    assert cuda_sequence.launches == before
 
 
 @pytest.mark.cuda

@@ -48,6 +48,26 @@ inputs in turns — base, this tree, this tree, base — with 5 timings of
   wide, e_pad 8 and m (10 launches a graph past 8M nodes). Run:
   ``python3 tools/torch_kernel_ab.py --base _archive/base --single-row
   --out chiprun_out/kernel_ab_single_row.json``.
+- ``--split``: the flat-map kernel's split variant. At replica sync's
+  union of one long document (``chip_smoke.peer_ops``, D = 1, N =
+  65,536, S = 4,096, A = 16), checked equal first: the base's
+  block-global variant against the split variant, from a graph and
+  eagerly. Then the crossover table behind ``cuda_merge.SPLIT_BANDS``:
+  the split variant against the variant the shape takes without it
+  (``cuda_merge.variant(N, S, A)``) at D in ``SPLIT_CROSS_D``, N in
+  ``SPLIT_CROSS_N``, S in {32, 4,096} and A in {8, 16}, on random
+  device-made ops (``SPLIT_ITERS`` launches a graph); printed as the
+  ratio of the two medians (the smallest of the four (S, A); above 1
+  the split variant wins) with, for each N, the most documents at which
+  the split variant won at all four, and the documents
+  ``cuda_merge.SPLIT_BANDS`` sends to it.
+- ``--delta``: the RGA kernel's delta mode. At config 5's tick-2 input
+  (``--docs`` documents, K = 12,288, m = 9), checked equal first: the
+  base's delta launch (one warp a row, four outputs) against the subwarp
+  variant, and this tree's narrow variant (tree_pos only) against it.
+  Then the crossover table behind ``cuda_sequence.M_SUBWARP``: subwarp
+  against narrow at every m up to 32, K in ``DELTA_CROSS_K``, on seeded
+  delta forests.
 
 Prints one line per comparison (median, min and max of the 10 timings of
 each side) and writes them all, with the card's name and power limit, to
@@ -139,6 +159,20 @@ def in_turns(label, a_name, a_fn, b_name, b_fn, timing, results,
         f'{n} {e["median_ms"]:.5f} ms (min {e["min_ms"]:.5f}, max '
         f'{e["max_ms"]:.5f})' for n, e in entry.items() if n != 'timing'),
         flush=True)
+
+
+# the split variant's crossover table (cuda_merge.SPLIT_BANDS): documents
+# and ops a document; S in {32, 4,096}, A in {8, 16}
+SPLIT_CROSS_D = (1, 2, 4, 8, 16, 32, 64, 132, 264, 528)
+SPLIT_CROSS_N = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+SPLIT_ITERS = 20
+# the subwarp variant's crossover table (cuda_sequence.M_SUBWARP): rows
+DELTA_CROSS_K = (1024, 12288)
+# the base's delta-mode entry point before the subwarp variant: parent,
+# anchor, elem, actor, valid, tree_pos, vis_index, node_at_pos, length,
+# K, m, rounds, stream
+_DELTA_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p]
 
 
 def build_base(base, names):
@@ -662,6 +696,200 @@ def ab_single_row(args, base, results):
             torch.cuda.empty_cache()
 
 
+def _union_of_one_document():
+    """Replica sync's union resolve input (``chip_smoke._mesh_peers``):
+    the four peers' ops of ``chip_smoke.peer_ops()`` as one [1, 65,536]
+    document on the card, and its segment count."""
+    import torch
+    cols = chip_smoke.peer_ops()
+    return [torch.as_tensor(a.reshape((1, -1) + a.shape[2:])).to('cuda')
+            for a in cols[:6]], 4096
+
+
+def _device_ops(D, N, A, seed):
+    """Random flat-map inputs made on the card (the crossover table's
+    shapes reach 34.6M ops): raw segment ids (reduced mod S by the
+    caller), actors, seqs, clocks, 10% deletes, 90% valid."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=g, device='cuda',
+                             dtype=torch.int32)
+    return (ints((D, N), 1 << 30), ints((D, N), A), ints((D, N), 64) + 1,
+            ints((D, N, A), 64),
+            torch.rand((D, N), generator=g, device='cuda') < 0.1,
+            torch.rand((D, N), generator=g, device='cuda') >= 0.1)
+
+
+def ab_split(args, base, results):
+    """The split variant against the base's block-global variant at the
+    union of one long document, then its crossover table."""
+    import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_grid, cuda_merge
+    ins, S = _union_of_one_document()
+    D, N = ins[0].shape
+    A = ins[3].shape[2]
+    shape = f'D={D} N={N} A={A} S={S}'
+    run = cuda_build.load('flatmap_resolve', 'flatmap_resolve_run',
+                          cuda_merge._ARGTYPES)
+    b_run = _bind(base, 'flatmap_resolve_run', cuda_merge._ARGTYPES)
+
+    def side(fn, var, words):
+        o = [torch.empty((D, N), dtype=torch.bool, device='cuda'),
+             torch.empty((D, S), dtype=torch.int32, device='cuda'),
+             torch.empty((D, S), dtype=torch.int32, device='cuda')]
+        sc = torch.empty(words, dtype=torch.int32, device='cuda')
+
+        def call():
+            _check(fn(cuda_merge._VARIANTS[var], *_ptrs(ins), *_ptrs(o),
+                      sc.data_ptr(), D, N, S, A, _stream()))
+        return call, o
+    b, o_b = side(b_run, 'block-global', D * (S + 1) * (A + 2))
+    n, o_n = side(run, 'split', cuda_merge.split_scratch_words(D, S, A))
+    b(), n()
+    _same(o_b, o_n, f'flatmap split {shape}')
+    for timing in ('graph', 'eager'):
+        in_turns(f'flatmap_resolve union of one document {shape} '
+                 f'({timing})', 'base block-global', b, 'this tree split',
+                 n, timing, results)
+
+    table = {}
+    for A in (8, 16):
+        for N in SPLIT_CROSS_N:
+            for D in SPLIT_CROSS_D:
+                raw = _device_ops(D, N, A, seed=D * N + A)
+                for S in (32, 4096):
+                    t = (raw[0] % S, *raw[1:])
+                    other = cuda_merge.variant(N, S, A)
+
+                    def call(v):
+                        return lambda: cuda_merge.resolve_cuda(
+                            *t, num_segments=S, force=v)
+                    o_s, o_o = call('split')(), call(
+                        'warp' if other == 'warp' else 'block')()
+                    _same([o_s[k] for k in sorted(o_s)],
+                          [o_o[k] for k in sorted(o_o)],
+                          f'flatmap split vs {other} D={D} N={N} S={S}')
+                    label = (f'flatmap_resolve crossover D={D} N={N} A={A} '
+                             f'S={S}')
+                    in_turns(label, other,
+                             call('warp' if other == 'warp' else 'block'),
+                             'split', call('split'), 'graph', results,
+                             iters=SPLIT_ITERS)
+                    e = results[label]
+                    table[f'{D},{N},{A},{S}'] = {
+                        'other': other,
+                        'ratio': e[other]['median_ms']
+                        / e['split']['median_ms']}
+                    del t, o_s, o_o
+                del raw
+                torch.cuda.empty_cache()
+    results['split crossover'] = table
+    print('flatmap_resolve split crossover: the variant a shape takes '
+          'without it over the split one, graph medians in turns, the '
+          'smallest of the four (S, A); above 1 the split variant wins')
+    print('N \\ D ' + ' '.join(f'{D:>6}' for D in SPLIT_CROSS_D)
+          + '  won to  bands')
+    for N in SPLIT_CROSS_N:
+        worst = [min(table[f'{D},{N},{A},{S}']['ratio'] for A in (8, 16)
+                     for S in (32, 4096)) for D in SPLIT_CROSS_D]
+        won = max([D for D, r in zip(SPLIT_CROSS_D, worst) if r > 1],
+                  default=0)
+        band = cuda_grid.band_rows(cuda_merge.SPLIT_BANDS, N)
+        print(f'{N:>6} ' + ' '.join(f'{r:6.2f}' for r in worst)
+              + f'  {won:>6}  {band:>5}', flush=True)
+
+
+def capture_delta(n_docs, list_ops=48):
+    """The delta orderer's input on config 5's tick 2 (a fleet of
+    ``n_docs`` documents, two ticks)."""
+    import torch
+    from automerge_tpu_torch.device import sequence
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    ticks = [chip_smoke.gen_mixed_docs(n_docs, list_ops),
+             chip_smoke.gen_tick2(n_docs, list_ops)]
+    ids = [f'doc{d}' for d in range(n_docs)]
+    cap = []
+    real = sequence._rga_delta_order_batched
+
+    def cap_delta(*a):
+        cap.append(a)
+        return real(*a)
+    sequence._rga_delta_order_batched = cap_delta
+    try:
+        gds = GeneralDocSet(n_docs, device='cuda')
+        for batch in ticks:
+            gds.apply_changes_batch({ids[d]: batch[d]
+                                     for d in range(n_docs)})
+        torch.cuda.synchronize()
+    finally:
+        sequence._rga_delta_order_batched = real
+    return cap[-1]
+
+
+def ab_delta(args, base, results):
+    """The subwarp variant against the base's delta launch at config 5's
+    tick 2, against this tree's narrow variant there, then its crossover
+    table."""
+    import torch
+    from automerge_tpu_torch.device import cuda_build, cuda_sequence
+    from automerge_tpu_torch.device import sequence
+    I32 = torch.int32
+    a = capture_delta(args.docs)
+    planes = [t.to(I32).contiguous() for t in a[:4]] + \
+        [a[4].to(torch.bool).contiguous()]
+    K, m = planes[0].shape
+    rounds = sequence._ceil_log2(m) + 1
+    run = cuda_build.load('rga_order', 'rga_delta_run',
+                          cuda_sequence._DELTA_ARGTYPES)
+    b_fn = _bind(base, 'rga_delta_launch', _DELTA_LAUNCH_ARGTYPES)
+    o_b = [torch.empty((K, m), dtype=I32, device='cuda') for _ in range(3)] \
+        + [torch.empty(K, dtype=I32, device='cuda')]
+    tp = {v: torch.empty((K, m), dtype=I32, device='cuda')
+          for v in ('narrow', 'subwarp')}
+
+    def b():
+        _check(b_fn(*_ptrs(planes), *_ptrs(o_b), K, m, rounds, _stream()))
+
+    def n(v):
+        code = cuda_sequence._DELTA_VARIANTS[v]
+        return lambda: _check(run(code, *_ptrs(planes), tp[v].data_ptr(), K,
+                                  m, rounds, _stream()))
+    b(), n('narrow')(), n('subwarp')()
+    valid = planes[4]
+    _same([o_b[0][valid], tp['narrow'][valid]],
+          [tp['subwarp'][valid]] * 2, f'delta K={K} m={m}')
+    for timing in ('graph', 'eager'):
+        in_turns(f'rga_order delta, tick 2 K={K} m={m} ({timing})',
+                 'base narrow', b, 'this tree subwarp', n('subwarp'),
+                 timing, results)
+    in_turns(f'rga_order delta variants, tick 2 K={K} m={m}',
+             'narrow', n('narrow'), 'subwarp', n('subwarp'), 'graph',
+             results)
+
+    table = {}
+    rng = np.random.default_rng(9)
+    for K in DELTA_CROSS_K:
+        for m in range(1, 33):
+            p = [torch.as_tensor(x).to('cuda')
+                 for x in chip_smoke.delta_forests(rng, K, m)]
+            rounds = sequence._ceil_log2(m) + 1
+
+            def call(v):
+                return lambda: cuda_sequence.rga_delta_cuda(
+                    *p[:4], p[4], rounds=rounds, force=v)
+            _same([call('narrow')()[p[4]]], [call('subwarp')()[p[4]]],
+                  f'delta K={K} m={m}')
+            label = f'rga_order delta crossover K={K} m={m}'
+            in_turns(label, 'narrow', call('narrow'), 'subwarp',
+                     call('subwarp'), 'graph', results)
+            e = results[label]
+            table[f'{K},{m}'] = e['subwarp']['median_ms'] / \
+                e['narrow']['median_ms']
+    results['delta crossover (subwarp / narrow)'] = table
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--base', default=os.path.join(ROOT, '_archive', 'base'))
@@ -671,6 +899,12 @@ def main():
     ap.add_argument('--single-row', action='store_true',
                     help='only the single-row lane: the grid variants '
                          'against the base\'s one-block-per-row kernels')
+    ap.add_argument('--split', action='store_true',
+                    help='the flat-map split variant against the base\'s '
+                         'block-global one, then its crossover table')
+    ap.add_argument('--delta', action='store_true',
+                    help='the delta mode\'s subwarp variant against the '
+                         'base\'s delta launch, then its crossover table')
     ap.add_argument('--out', default=os.path.join(
         ROOT, 'automerge_tpu_torch', '_build', 'kernel_ab.json'))
     args = ap.parse_args()
@@ -681,18 +915,24 @@ def main():
     from automerge_tpu_torch.device import cuda_build
     card = chip_smoke._card_line()
     print(card, flush=True)
-    names = ['rga_order', 'edit_stream'] if args.single_row else \
-        args.kernels
+    lanes = args.single_row or args.split or args.delta
+    names = ['rga_order', 'edit_stream'] if args.single_row else []
+    names += ['flatmap_resolve'] if args.split else []
+    names += ['rga_order'] if args.delta and not args.single_row else []
+    names = names if lanes else args.kernels
     cuda_build.build_all(names, force=True)
     base = build_base(args.base, names)
     results = {'card': card, 'torch': torch.__version__,
                'cuda': torch.version.cuda}
     if args.single_row:
         ab_single_row(args, base, results)
-    elif 'flatmap_resolve' in base:
+    if args.split:
+        ab_split(args, base['flatmap_resolve'], results)
+    if args.delta:
+        ab_delta(args, base['rga_order'], results)
+    if not lanes and 'flatmap_resolve' in base:
         ab_flatmap(args, base['flatmap_resolve'], results)
-    if not args.single_row and ('rga_order' in base or
-                                'edit_stream' in base):
+    if not lanes and ('rga_order' in base or 'edit_stream' in base):
         ab_sequence(args, base, results)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as fh:
