@@ -26,7 +26,9 @@ or the .so is unavailable, callers fall back to plain Python lists.
 This is the PyTorch port's copy of ``automerge_tpu/native.py``: it reads
 the SAME C++ sources (``native/seq_index.cpp``, ``native/wire_codec.cpp``
 at the repository root, never edited) and builds them with g++ into this
-package's own ``_native/`` directory. It binds the sequence index, the
+package's own ``_native/`` directory (the codec, where that directory
+cannot be written, into a per-user cache, as the reference's
+``wire._load`` does). It binds the sequence index, the
 native general stager (``amst_stage_general``), the view gathers, and
 the codec's wire-blob emit and columnar v2/v3 entry points that
 :mod:`.wire` calls.
@@ -36,6 +38,7 @@ import ctypes
 import os
 import subprocess
 import tempfile
+import warnings
 
 _LIB = None
 _LOAD_ATTEMPTED = False
@@ -120,11 +123,40 @@ _WIRE_LIB = None
 _WIRE_ATTEMPTED = False
 
 
+def _wire_cache_so_path():
+    """The codec's build target when ``_native/`` cannot be written (a
+    read-only install): a per-user cache directory named for this
+    package, keyed by a hash of the source, so two installs with
+    different codec sources (or the JAX package's build) never load
+    each other's binary."""
+    import hashlib
+    try:
+        with open(_WIRE_SRC_PATH, 'rb') as f:
+            tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    except OSError:
+        tag = 'nosrc'
+    base = os.environ.get('XDG_CACHE_HOME') or \
+        os.path.join(os.path.expanduser('~'), '.cache')
+    return os.path.join(base, 'automerge_tpu_torch', f'libamwire-{tag}.so')
+
+
+def _wire_compile(so_path):
+    """Build the codec into ``so_path``; False (never an ``OSError``)
+    when its directory cannot be made or written."""
+    try:
+        return _compile(_WIRE_SRC_PATH, so_path)
+    except OSError:
+        return False
+
+
 def _wire_load():
-    """The codec library (``native/wire_codec.cpp``) built into this
-    package's ``_native/``, or None (no source, no g++, or
-    ``AUTOMERGE_TPU_NATIVE=0``). A binary older than its source is
-    rebuilt; one that cannot be rebuilt is not loaded."""
+    """The codec library (``native/wire_codec.cpp``), or None (no
+    source and no binary, no g++, or ``AUTOMERGE_TPU_NATIVE=0``). It is
+    built into this package's ``_native/``, else into the per-user
+    cache (:func:`_wire_cache_so_path`); a binary older than its source
+    is rebuilt, and loaded with a ``RuntimeWarning`` only when no
+    candidate could be rebuilt. On None, :func:`.wire._load` warns and
+    the pure-Python parser runs."""
     global _WIRE_LIB, _WIRE_ATTEMPTED
     if _WIRE_ATTEMPTED:
         return _WIRE_LIB
@@ -132,14 +164,34 @@ def _wire_load():
     if os.environ.get('AUTOMERGE_TPU_NATIVE', '1') == '0':
         return None
     have_src = os.path.exists(_WIRE_SRC_PATH)
-    fresh = (os.path.exists(_WIRE_SO_PATH) and
-             (not have_src or os.path.getmtime(_WIRE_SO_PATH)
-              >= os.path.getmtime(_WIRE_SRC_PATH)))
-    if not fresh and not (have_src and
-                          _compile(_WIRE_SRC_PATH, _WIRE_SO_PATH)):
+    candidates = (_WIRE_SO_PATH, _wire_cache_so_path())
+    so_path = None
+    for candidate in candidates:
+        stale = (have_src and os.path.exists(candidate)
+                 and os.path.getmtime(candidate)
+                 < os.path.getmtime(_WIRE_SRC_PATH))
+        if os.path.exists(candidate) and not stale:
+            so_path = candidate
+            break
+        if have_src and _wire_compile(candidate):
+            so_path = candidate
+            break
+    if so_path is None:
+        # last resort: a stale binary beats no binary, but only after
+        # every candidate (the user cache included) failed to rebuild
+        for candidate in candidates:
+            if os.path.exists(candidate):
+                so_path = candidate
+                warnings.warn(
+                    f'automerge_tpu_torch: native wire codec at '
+                    f'{candidate} is older than its source and could not '
+                    f'be rebuilt; loading the stale binary.',
+                    RuntimeWarning)
+                break
+    if so_path is None:
         return None
     try:
-        _WIRE_LIB = ctypes.CDLL(_WIRE_SO_PATH)
+        _WIRE_LIB = ctypes.CDLL(so_path)
     except OSError:
         _WIRE_LIB = None
     return _WIRE_LIB

@@ -87,8 +87,9 @@ def _bind(lib):
 def _load():
     """The codec library bound for parsing, or None. It is the port's own
     build of ``native/wire_codec.cpp`` (:func:`..native._wire_load`, into
-    this package's ``_native/``); without it the pure-Python parser
-    runs."""
+    this package's ``_native/`` or the per-user cache, a stale binary as
+    a last resort); without it the pure-Python parser runs, with a
+    warning."""
     global _LIB, _LOAD_ATTEMPTED
     if _LOAD_ATTEMPTED:
         return _LIB
@@ -226,7 +227,10 @@ def parse_general_block(data, store=None):
         if store is None:
             from .device.general import GeneralStore
             per_doc = json.loads(data.decode('utf-8'))
-            return GeneralStore(len(per_doc)).encode_changes(per_doc)
+            # a throwaway store that only encodes on the host (the
+            # native parse needs no device either)
+            return GeneralStore(len(per_doc),
+                                device='cpu').encode_changes(per_doc)
         return store.encode_changes(json.loads(data.decode('utf-8')))
 
     if store is not None and hasattr(store, 'wire_obj_tables'):

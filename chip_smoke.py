@@ -82,6 +82,23 @@ exits non-zero without a result line):
    4f. the facade on map-only documents from ``init`` (the card by
    default): 8 actors x 16 set/del ops over 32 keys, merged both ways,
    equal to the host oracle, through the flat-map kernel;
+   4g. BASELINE configs 1-3 (the JAX package's ``bench.py:269``,
+   ``:295``, ``:362`` and ``:429``) through the public entry points,
+   every document on the card by default: (1) the README's card list,
+   20 three-way ``merge``s (p50, p90), its ``save`` byte-equal to the
+   same run on the CPU (counter uuids) and the merge equal to the host
+   oracle's; (2) three writers' 10,000 chars into one ``Text``
+   (changes built on the host oracle) through
+   ``DeviceBackend.apply_changes`` by its bulk auto-route (median of 3)
+   and by the per-doc route (once), and through ``apply_general_block``
+   (median of 3), each route's diffs equal to the CPU run's and its text
+   to the host oracle's, the RGA kernel and the edit stream launched;
+   (3) DocSet + Connection: 100 card documents to an empty ``DocSet``
+   (3 eager rounds, the message log equal to the CPU run's), 2,000 flat
+   documents over ``BatchingConnection`` into a ``DenseDocSet`` and
+   2,000 rich ones into a ``GeneralDocSet`` (its tick's diffs read),
+   each equal to the source and to a CPU doc set fed the same way, and
+   the eager round at 2,000; the source documents' build time;
 5. the per-doc device backend: ``DeviceDocSet(device='cuda')
    .apply_changes_batch`` on a 10,240-document map-only fleet (8
    concurrent actors x 16 set/del ops over 32 keys per document,
@@ -162,6 +179,7 @@ just after it. The workload generators (``gen_mixed_docs``,
 import collections
 import contextlib
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -410,10 +428,12 @@ def wide_planes(pv, nv, pi, ni):
 
 def _require_launch(added, kernel, what):
     """Fail unless ``added`` (launch counts of one run, by key) holds a
-    launch of ``kernel``."""
-    if not any(key[0] == kernel for key in added):
-        raise AssertionError(f'{what} did not launch the {kernel} kernel '
-                             f'(launches: {added})')
+    launch of ``kernel``: a kernel's name, or the leading part of a
+    launch key (kernel, mode, variant)."""
+    lead = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    if not any(key[:len(lead)] == lead for key in added):
+        raise AssertionError(f'{what} did not launch the '
+                             f'{":".join(lead)} kernel (launches: {added})')
 
 
 def _env_bytes(env):
@@ -935,6 +955,410 @@ def _facade_map_path(card, inputs):
           f'{t_run:.1f} ms; converged, == the host oracle; launches '
           f'{added}', flush=True)
     return added
+
+
+# ---- phase 4g: BASELINE configs 1-3 through the public entry points ------
+
+def counter_uuids():
+    """A uuid factory counting from 0: two runs of one script (two
+    packages, or the card and the CPU) then name the same objects."""
+    n = itertools.count()
+    return lambda: f'00000000-0000-4000-8000-{next(n):012x}'
+
+
+def card_list_docs(am, new):
+    """BASELINE config 1 (the JAX package's ``bench.py:269``): the
+    README's card list through facade ``am``, ``new(actor)`` making each
+    empty document. Actor a makes the list and two cards, b merges them
+    in, then a ticks the first card off while b deletes the other.
+    Returns (a, b)."""
+    a = am.change(new('aaaa-bench'), lambda d: d.__setitem__('cards', []))
+    a = am.change(a, lambda d: d['cards'].append(
+        {'title': 'Rewrite everything in JAX', 'done': False}))
+    a = am.change(a, lambda d: d['cards'].insert(
+        0, {'title': 'Rewrite everything in Pallas', 'done': False}))
+    b = am.merge(new('bbbb-bench'), a)
+    a = am.change(a, lambda d: d['cards'][1].__setitem__('done', True))
+    b = am.change(b, lambda d: d['cards'].__delitem__(0))
+    return a, b
+
+
+def card_list_merge(am, new, a, b):
+    """Config 1's timed step: a fresh third document merges a, then b."""
+    return am.merge(am.merge(new('cccc-bench'), a), b)
+
+
+def text_writer_changes(am, n_chars):
+    """BASELINE config 2 (``bench.py:295``): the changes of three
+    concurrent writers, each typing ``n_chars // 3`` copies of its
+    letter at the front of one shared ``Text``, built on facade ``am``'s
+    host oracle as the bench builds them: the base change, then one
+    change a writer."""
+    F, B = am.Frontend, am.Backend
+    base_doc = F.set_actor_id(F.init({'backend': B}), 'base')
+    base_doc, _ = F.change(base_doc,
+                           lambda d: d.__setitem__('text', am.Text()))
+    base = B.get_changes_for_actor(F.get_backend_state(base_doc), 'base')
+    changes = list(base)
+    for i in range(3):
+        actor = f'writer-{i}'
+        doc = F.set_actor_id(F.init({'backend': B}), actor)
+        state, patch = B.apply_changes(F.get_backend_state(doc), base)
+        patch['state'] = state
+        doc = F.apply_patch(doc, patch)
+        doc, _ = F.change(doc, lambda d, c=chr(97 + i): d['text'].insert_at(
+            0, *(c * (n_chars // 3))))
+        changes.extend(B.get_changes_for_actor(F.get_backend_state(doc),
+                                               actor))
+    return changes
+
+
+def text_through_frontend(am, diffs):
+    """The text a patch's ``diffs`` give a fresh frontend document of
+    facade ``am`` (no backend), as a string."""
+    doc = am.Frontend.apply_patch(am.Frontend.init('reader'),
+                                  {'diffs': list(diffs)})
+    return ''.join(str(c) for c in doc['text'])
+
+
+def docset_source(am, new, n_docs, rich=False):
+    """BASELINE config 3's source replica (``bench.py:362``, ``:429``): an
+    ``am.DocSet`` of ``n_docs`` documents ``doc{i}``, each made by
+    ``new(f'actor-{i:05d}')`` and one change setting ``id`` and ``n``;
+    ``rich``: a title, a nested map, a list and a ``Text``, then a
+    second change typing "hey"."""
+    src = am.DocSet()
+
+    def rich_init(d, i):
+        d['title'] = f'doc {i}'
+        d['meta'] = {'v': i}
+        d['items'] = [1, 2, i]
+        d['text'] = am.Text()
+
+    for i in range(n_docs):
+        doc = new(f'actor-{i:05d}')
+        if rich:
+            doc = am.change(doc, lambda d, i=i: rich_init(d, i))
+            doc = am.change(doc, lambda d: d['text'].insert_at(
+                0, 'h', 'e', 'y'))
+        else:
+            doc = am.change(doc, lambda d, i=i: d.update({'id': i,
+                                                          'n': i * 2}))
+        src.set_doc(f'doc{i}', doc)
+    return src
+
+
+def sync_round(src, dst, connection, batching=None):
+    """One exchange of the bench (``bench.py:383``): ``src`` and ``dst``
+    each behind a ``connection``, or ``dst`` behind ``batching`` (a
+    ``BatchingConnection``, flushed once a delivery round), message
+    queues drained until quiet. Returns the message log, each message
+    with its sender ('a' the source, 'b' the destination)."""
+    msgs_a, msgs_b, log = [], [], []
+    ca = connection(src, msgs_a.append)
+    cb = (batching or connection)(dst, msgs_b.append)
+    ca.open()
+    cb.open()
+    while msgs_a or msgs_b:
+        batch, msgs_a[:] = msgs_a[:], []
+        for msg in batch:
+            log.append(('a', msg))
+            cb.receive_msg(msg)
+        if batching is not None:
+            cb.flush()
+        batch, msgs_b[:] = msgs_b[:], []
+        for msg in batch:
+            log.append(('b', msg))
+            ca.receive_msg(msg)
+    return log
+
+
+def _wall_ms(fn):
+    """(fn's result, wall ms with the card drained)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _keys(added):
+    return ', '.join(f'{":".join(k)} x{n}' for k, n in sorted(added.items()))
+
+
+def _config1_cards(am, card):
+    """Phase 4g, config 1: the card list built with ``init`` on the card,
+    20 three-way merges timed; its saves equal, byte for byte, to the
+    same run on the CPU (counter uuids in both), and the merged document
+    to the host oracle's."""
+    def run(new):
+        am.uuid.set_factory(counter_uuids())
+        try:
+            a, b = card_list_docs(am, new)
+            merges = [_wall_ms(lambda: card_list_merge(am, new, a, b))
+                      for _ in range(20)]
+        finally:
+            am.uuid.reset()
+        return [am.save(d) for d in (a, b, merges[-1][0])], merges
+
+    before = _launch_counts()
+    saves, merges = run(am.init)
+    added = _added(_launch_counts(), before)
+    merged, t = merges[-1][0], [ms for _, ms in merges]
+    if merged['cards'] != [{'title': 'Rewrite everything in JAX',
+                            'done': True}]:
+        raise AssertionError(f'config 1: cards {merged["cards"]}')
+    if saves != run(lambda actor: am.init(actor, device='cpu'))[0]:
+        raise AssertionError('config 1: the card run\'s saves != the CPU '
+                             'run\'s')
+    oracle = lambda actor: am.Frontend.init({'actorId': actor,
+                                             'backend': am.Backend})
+    if doc_view(merged) != doc_view(card_list_merge(
+            am, oracle, *card_list_docs(am, oracle))):
+        raise AssertionError('config 1: merged document != the host '
+                             'oracle\'s')
+    _require_launch(added, 'flatmap_resolve', 'config 1')
+    _require_launch(added, 'rga_order', 'config 1')
+    print(f'config 1, card list ({card}): 3-way merge p50 '
+          f'{np.percentile(t, 50):.3f} ms, p90 {np.percentile(t, 90):.3f} '
+          f'ms over 20 merges of card documents; saves byte-equal to the '
+          f'CPU run\'s ({sum(map(len, saves))} B), merged == the host '
+          f'oracle; launches {_keys(added)}', flush=True)
+
+
+def _config2_text(am, card, n_chars=10000):
+    """Phase 4g, config 2: three writers' changes (built on the host
+    oracle) into one ``Text`` through ``DeviceBackend.apply_changes`` by
+    its bulk auto-route (the general engine) and by the per-doc route,
+    and through ``apply_general_block``; each route's diffs equal to the
+    same route on the CPU, its text to the host oracle's."""
+    from automerge_tpu_torch.config import Options
+    from automerge_tpu_torch.device import backend as DeviceBackend
+    from automerge_tpu_torch.device import general
+    t0 = time.perf_counter()
+    am.uuid.set_factory(counter_uuids())
+    try:
+        changes = text_writer_changes(am, n_chars)
+    finally:
+        am.uuid.reset()
+    n_ops = sum(len(c['ops']) for c in changes)
+    _, patch = am.Backend.apply_changes(am.Backend.init(), changes)
+    want_text = text_through_frontend(am, patch['diffs'])
+    t_build = (time.perf_counter() - t0) * 1e3
+    per_doc = Options(bulk_route_min_ops=None)
+
+    def bulk(device=None):
+        return DeviceBackend.apply_changes(DeviceBackend.init(device=device),
+                                           changes)[1]['diffs']
+
+    def doc_route(device=None):
+        return DeviceBackend.apply_changes(DeviceBackend.init(device=device),
+                                           changes, options=per_doc)[1][
+            'diffs']
+
+    def block_route(device=None):
+        store = general.init_store(1, device=device)
+        block = store.encode_changes([changes])
+        return store, block
+
+    before = _launch_counts()
+    bulk()
+    t_bulk = [_wall_ms(bulk) for _ in range(3)]
+    bulk_keys = _added(_launch_counts(), before)
+    before = _launch_counts()
+    doc_diffs, t_doc = _wall_ms(doc_route)
+    doc_keys = _added(_launch_counts(), before)
+    before = _launch_counts()
+    store, block = block_route()
+    general.apply_general_block(store, block).block_until_ready()
+
+    def block_once():
+        s = general.init_store(1)
+        return general.apply_general_block(s, block).block_until_ready()
+    t_block = [_wall_ms(block_once)[1] for _ in range(3)]
+    s = general.init_store(1)
+    block_diffs = general.apply_general_block(s, block).diffs(0)
+    block_keys = _added(_launch_counts(), before)
+    cpu_store, cpu_block = block_route('cpu')
+    cpu = {'bulk': bulk('cpu'), 'per-doc': doc_route('cpu'),
+           'block': general.apply_general_block(cpu_store,
+                                                cpu_block).diffs(0)}
+    got = {'bulk': t_bulk[-1][0], 'per-doc': doc_diffs,
+           'block': block_diffs}
+    for route, diffs in got.items():
+        if list(diffs) != list(cpu[route]):
+            raise AssertionError(f'config 2: the {route} route\'s diffs != '
+                                 f'the CPU run\'s')
+        if text_through_frontend(am, diffs) != want_text:
+            raise AssertionError(f'config 2: the {route} route\'s text != '
+                                 f'the host oracle\'s')
+    for route, added in (('bulk', bulk_keys), ('per-doc', doc_keys),
+                         ('block', block_keys)):
+        _require_launch(added, 'rga_order', f'config 2\'s {route} route')
+    _require_launch({**bulk_keys, **block_keys}, 'edit_stream',
+                    'config 2\'s general-engine routes')
+    print(f'config 2, three writers\' Text ({card}): {len(changes)} changes, '
+          f'{n_ops} ops, {len(want_text)} chars (built on the host oracle in '
+          f'{t_build:.1f} ms); bulk auto-route median of 3 '
+          f'{np.median([t for _, t in t_bulk]):.1f} ms (launches '
+          f'{_keys(bulk_keys)}); per-doc route once {t_doc:.1f} ms '
+          f'(launches {_keys(doc_keys)}); apply_general_block median of 3 '
+          f'{np.median(t_block):.1f} ms (launches, with one patch read: '
+          f'{_keys(block_keys)}); each route\'s diffs == the CPU run\'s, '
+          f'its text == the host oracle\'s', flush=True)
+
+
+def _config3_docsets(am, card, n_eager=100, n_batch=2000):
+    """Phase 4g, config 3: DocSet + Connection. (i) ``n_eager`` documents
+    made on the card go to an empty ``DocSet`` over two ``Connection``s,
+    the message log equal to the same on the CPU and the copies to the
+    source; (ii) ``n_batch`` flat documents over a
+    ``BatchingConnection`` into a card ``DenseDocSet``; (iii) ``n_batch``
+    rich documents into a card ``GeneralDocSet``, its tick's diffs read
+    (the edit stream). (ii) and (iii) equal the source and a CPU doc
+    set fed the same way. Source documents are made on the card."""
+    from automerge_tpu_torch.sync.connection import BatchingConnection
+    from automerge_tpu_torch.sync.dense_doc_set import DenseDocSet
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    cpu = lambda actor: am.init(actor, device='cpu')
+
+    def views(ds):
+        return {i: doc_view(ds.get_doc(i)) for i in ds.doc_ids}
+
+    # (i) the eager exchange
+    before = _launch_counts()
+    src, t_src = _wall_ms(lambda: docset_source(am, am.init, n_eager))
+    src_keys = _added(_launch_counts(), before)
+    rounds = []
+    for _ in range(3):
+        dst = am.DocSet()
+        log, ms = _wall_ms(lambda: sync_round(src, dst, am.Connection))
+        rounds.append(ms)
+    cpu_log = sync_round(docset_source(am, cpu, n_eager), am.DocSet(),
+                         am.Connection)
+    if log != cpu_log:
+        raise AssertionError('config 3 (i): the message log != the CPU '
+                             'run\'s')
+    if views(dst) != views(src):
+        raise AssertionError('config 3 (i): the copies != the source')
+    _require_launch(src_keys, 'flatmap_resolve', 'config 3\'s source')
+    print(f'config 3 (i), DocSet + Connection ({card}): {n_eager} documents '
+          f'made on the card in {t_src:.1f} ms ({t_src / n_eager:.2f} ms a '
+          f'change, launches {_keys(src_keys)}); eager round '
+          f'{np.mean(rounds):.1f} ms mean of 3 ({", ".join(f"{t:.1f}" for t in rounds)}'
+          f'), {len(log)} messages == the CPU run\'s log; copies == the '
+          f'source', flush=True)
+
+    def batched(what, src, make, check):
+        """A warm-up round and a timed one into ``make(device)``, then
+        the same into a CPU doc set; returns (round ms, launches)."""
+        sync_round(src, make(None), am.Connection, BatchingConnection)
+        before = _launch_counts()
+        dst = make(None)
+        log, ms = _wall_ms(lambda: sync_round(src, dst, am.Connection,
+                                               BatchingConnection))
+        got = check(dst)
+        added = _added(_launch_counts(), before)
+        cpu_dst = make('cpu')
+        if sync_round(src, cpu_dst, am.Connection,
+                      BatchingConnection) != log:
+            raise AssertionError(f'config 3 {what}: the message log != '
+                                 f'the CPU doc set\'s')
+        if check(cpu_dst) != got:
+            raise AssertionError(f'config 3 {what}: the documents != the '
+                                 f'CPU doc set\'s')
+        return ms, len(log), added
+
+    # (ii) the batched dense line
+    before = _launch_counts()
+    src, t_src = _wall_ms(lambda: docset_source(am, am.init, n_batch))
+    src_keys = _added(_launch_counts(), before)
+    want = {f'doc{i}': {'id': i, 'n': i * 2} for i in range(n_batch)}
+
+    def dense_check(ds):
+        got = {i: ds.materialize(i) for i in ds.doc_ids}
+        if got != want:
+            raise AssertionError('config 3 (ii): the dense documents != '
+                                 'the source')
+        return got
+    ms, n_msgs, added = batched(
+        '(ii)', src, lambda d: DenseDocSet(n_batch, key_capacity=8,
+                                           actor_capacity=4, device=d),
+        dense_check)
+    dst = am.DocSet()
+    _, t_eager = _wall_ms(lambda: sync_round(src, dst, am.Connection))
+    print(f'config 3 (ii), dense line ({card}): {n_batch} documents made on '
+          f'the card in {t_src:.1f} ms ({t_src / n_batch:.2f} ms a change, '
+          f'launches {_keys(src_keys)}); BatchingConnection into '
+          f'DenseDocSet({n_batch}, key_capacity=8, actor_capacity=4) '
+          f'{ms:.1f} ms a round after one warm-up, {n_msgs} messages '
+          f'(launches {_keys(added) or "none: PyTorch ops"}); the eager '
+          f'round at {n_batch} documents {t_eager:.1f} ms; == the source '
+          f'and a CPU dense doc set', flush=True)
+
+    # (iii) the general line
+    before = _launch_counts()
+    src, t_src = _wall_ms(lambda: docset_source(am, am.init, n_batch,
+                                                 rich=True))
+    src_keys = _added(_launch_counts(), before)
+    want = {f'doc{i}': am.inspect(src.get_doc(f'doc{i}'))
+            for i in range(n_batch)}
+
+    def general_check(ds):
+        got = ds.materialize_all()
+        last = got[f'doc{n_batch - 1}']
+        if last['text'] != 'hey' or last['items'] != [1, 2, n_batch - 1]:
+            raise AssertionError(f'config 3 (iii): doc{n_batch - 1} is '
+                                 f'{last}')
+        if got != want:
+            raise AssertionError('config 3 (iii): the general documents '
+                                 '!= the source')
+        # the data tick's patch (its read runs the edit stream): each
+        # document's diffs build the source's document
+        diffs = {i: ds.last_patch.diffs(ds.id_of[i]) for i in ds.ids}
+        for i, d in diffs.items():
+            doc = am.Frontend.apply_patch(am.Frontend.init('reader'),
+                                          {'diffs': list(d)})
+            if am.inspect(doc) != want[i]:
+                raise AssertionError(f'config 3 (iii): {i}\'s diffs do '
+                                     f'not build the source document')
+        return got, diffs
+    ms, n_msgs, added = batched(
+        '(iii)', src, lambda d: GeneralDocSet(n_batch, device=d),
+        general_check)
+    _require_launch(src_keys, 'rga_order', 'config 3 (iii)\'s source')
+    _require_launch(added, ('rga_order', 'order', 'narrow'),
+                    'config 3 (iii)\'s round')
+    _require_launch(added, ('edit_stream', 'packed'),
+                    'config 3 (iii)\'s round')
+    print(f'config 3 (iii), general line ({card}): {n_batch} rich documents '
+          f'made on the card in {t_src:.1f} ms ({t_src / (2 * n_batch):.2f} '
+          f'ms a change, launches {_keys(src_keys)}); BatchingConnection '
+          f'into GeneralDocSet({n_batch}) {ms:.1f} ms a round after one '
+          f'warm-up, {n_msgs} messages, the tick\'s diffs read (launches '
+          f'{_keys(added)}); == the source and a CPU general doc set',
+          flush=True)
+
+
+def _baseline_configs_path(card, inputs):
+    """Phase 4g: BASELINE configs 1-3 through the port's public entry
+    points, every document on the card by default (see the three
+    ``_config*`` functions). Returns the launch counts, by key, of every
+    card run of the phase."""
+    import automerge_tpu_torch as am
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    t0 = time.perf_counter()
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        _config1_cards(am, card)
+        _config2_text(am, card)
+        _config3_docsets(am, card)
+    counts = _launch_counts()
+    print(f'baseline configs 1-3 ({card}): {time.perf_counter() - t0:.1f} s; '
+          f'launches {_keys(counts)}', flush=True)
+    return counts
+
 
 def _card_line():
     out = subprocess.run(
@@ -2945,6 +3369,9 @@ def main():
     text_counts = _text_trace_path(card, inputs)
     facade_counts = _facade_map_path(card, inputs)
 
+    # ---- 4g. BASELINE configs 1-3 through the public entry points ----
+    baseline_counts = _baseline_configs_path(card, inputs)
+
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
@@ -2962,7 +3389,7 @@ def main():
     # ---- 7. the kernels at the main paths' inputs ----
     launched = {}
     for counts in (main_counts, long_counts['launches'], wire_counts,
-                   text_counts, facade_counts, dds_counts,
+                   text_counts, facade_counts, baseline_counts, dds_counts,
                    fleet_counts, mesh_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
