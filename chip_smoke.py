@@ -99,6 +99,17 @@ exits non-zero without a result line):
    2,000 rich ones into a ``GeneralDocSet`` (its tick's diffs read),
    each equal to the source and to a CPU doc set fed the same way, and
    the eager round at 2,000; the source documents' build time;
+   4h. the JAX package's own behavioural suites on the card: the
+   ``cuda`` lane of ``tests/test_torch_conformance_{reference,device,
+   wire}.py`` through ``pytest.main`` in this process — the reference's
+   conformance suite (undo/redo, Text, conflicts, history, diff,
+   save/load, proxies, DocSet/Connection, WatchableDoc), the per-doc
+   device backend, snapshots, compaction, interop, the wire codecs and
+   the general engine, 635 cases re-collected against the port and run
+   at its default device with nothing patched; every case must pass,
+   the count per JAX module must be :data:`CONFORMANCE_CASES`, and
+   neither JAX nor the JAX package may be loaded; the cases passed per
+   module, the phase's seconds and its launches per key;
 5. the per-doc device backend: ``DeviceDocSet(device='cuda')
    .apply_changes_batch`` on a 10,240-document map-only fleet (8
    concurrent actors x 16 set/del ops over 32 keys per document,
@@ -157,7 +168,7 @@ exits non-zero without a result line):
    the kernels that take it;
 7. the widths (m) of every delta-orderer call the main paths made on the
    card; for every launch key (kernel, mode, variant) the main paths
-   launched (phases 4 to 5d): every input the paths handed that launch,
+   launched (phases 4 to 5d, 4h included): every input the paths handed that launch,
    as they handed it over, through the dispatch (which must take exactly
    that launch) against the plain version, bit for bit; then, at the
    largest of those inputs, the kernel and the plain version of what it
@@ -193,6 +204,25 @@ ROOT_ID = '00000000-0000-0000-0000-000000000000'
 
 # H100 SXM peak memory rate (NVIDIA data sheet), bytes/s
 _HBM_BYTES_PER_S = 3.35e12
+
+# phase 4h: the test files that re-collect the JAX package's own suites
+# against the port (their harness: tests/test_torch_conformance_harness.py)
+# and their cuda-lane cases by JAX test module. test_sequence_index and
+# test_suffix_window (tests/test_torch_conformance_index.py) import jax,
+# so they run on the CPU only.
+CONFORMANCE_FILES = ('tests/test_torch_conformance_reference.py',
+                     'tests/test_torch_conformance_device.py',
+                     'tests/test_torch_conformance_wire.py')
+CONFORMANCE_CASES = {
+    'test_integration': 59, 'test_integration_ext': 41, 'test_proxies': 40,
+    'test_text': 6, 'test_connection': 18, 'test_frontend': 13,
+    'test_frontend_concurrency': 27, 'test_backend': 19,
+    'test_watchable_uuid': 8, 'test_device_undo': 13,
+    'test_device_sequences': 31, 'test_device_backend': 19,
+    'test_backend_worker': 6, 'test_snapshot': 31, 'test_compaction': 23,
+    'test_interop': 12, 'test_text_block': 33, 'test_cross_engine': 47,
+    'test_wire': 29, 'test_wire_v2': 77, 'test_wire_sync': 42,
+    'test_general_backend': 22, 'test_general_materialize': 19}
 
 
 def gen_mixed_docs(n_docs, list_ops, doc0=0):
@@ -1357,6 +1387,80 @@ def _baseline_configs_path(card, inputs):
     counts = _launch_counts()
     print(f'baseline configs 1-3 ({card}): {time.perf_counter() - t0:.1f} s; '
           f'launches {_keys(counts)}', flush=True)
+    return counts
+
+
+# ---- phase 4h: the JAX package's behavioural suites on the card ----------
+
+class _CaseTally:
+    """A pytest plugin that counts the cases of a run by outcome, the
+    passed ones by the JAX test module they came from."""
+
+    def __init__(self, source_module):
+        self.source_module = source_module
+        self.passed = collections.Counter()
+        self.not_passed = []
+
+    def pytest_runtest_logreport(self, report):
+        if report.when == 'call' and report.passed:
+            self.passed[self.source_module(report.nodeid)] += 1
+        elif report.failed or report.skipped:
+            self.not_passed.append(f'{report.nodeid} ({report.outcome} '
+                                   f'in {report.when})')
+
+
+def _conformance_path(card, inputs):
+    """Phase 4h: the ``cuda`` lane of :data:`CONFORMANCE_FILES` in this
+    process through ``pytest.main`` (``--noconftest``: the repo's
+    conftest imports JAX): the JAX package's own behavioural suites,
+    re-collected against the port and run at its default device, the
+    card, with nothing patched. Every case must pass, the count per JAX
+    module must equal :data:`CONFORMANCE_CASES`, and neither JAX nor the
+    JAX package may be loaded at the end. The kernel inputs land in
+    ``inputs`` (see :func:`_capturing`). Returns the launch counts, by
+    key."""
+    import pytest
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, 'tests'))
+    from test_torch_conformance_harness import source_module
+    tally = _CaseTally(source_module)
+    args = ['--noconftest', '-p', 'no:cacheprovider', '-p', 'no:xdist',
+            '-p', 'no:randomly', '-m', 'cuda', '-q', '--rootdir', root,
+            *(os.path.join(root, f) for f in CONFORMANCE_FILES)]
+    t0 = time.perf_counter()
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    with _capturing(inputs):
+        rc = pytest.main(args, plugins=[tally])
+    counts = _launch_counts()
+    secs = time.perf_counter() - t0
+    loaded = sorted(k for k in sys.modules
+                    if k.split('.')[0] in ('jax', 'automerge_tpu'))
+    if rc != 0 or tally.not_passed or tally.passed != CONFORMANCE_CASES:
+        raise AssertionError(
+            f'the JAX package\'s suites on the card: pytest exit {rc}, '
+            f'passed {dict(tally.passed)} of {CONFORMANCE_CASES}, not '
+            f'passed {tally.not_passed[:20]}')
+    if loaded:
+        raise AssertionError(f'phase 4h loaded {loaded[:10]}')
+    # the per-doc backend's keys (every map-only change; every list or
+    # text change), and those the engine suites' patch reads, incremental
+    # applies and long rows reach
+    for key in (('flatmap_resolve', 'resolve', 'warp'),
+                ('rga_order', 'order', 'narrow'),
+                ('rga_order', 'order', 'wide'), ('rga_order', 'delta'),
+                ('edit_stream', 'packed', 'warp'),
+                ('edit_stream', 'packed', 'block')):
+        _require_launch(counts, key, 'the JAX package\'s suites')
+    print(f'the JAX package\'s suites on the card ({card}): '
+          f'{sum(tally.passed.values())} of '
+          f'{sum(CONFORMANCE_CASES.values())} cases passed in '
+          f'{secs:.1f} s, by module: '
+          + ', '.join(f'{m} {n}' for m, n in tally.passed.items()),
+          flush=True)
+    print(f'the JAX package\'s suites on the card ({card}): launches '
+          f'{_keys(counts)}; no JAX module loaded', flush=True)
     return counts
 
 
@@ -3372,6 +3476,9 @@ def main():
     # ---- 4g. BASELINE configs 1-3 through the public entry points ----
     baseline_counts = _baseline_configs_path(card, inputs)
 
+    # ---- 4h. the JAX package's behavioural suites on the card ----
+    conformance_counts = _conformance_path(card, inputs)
+
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
 
@@ -3389,8 +3496,9 @@ def main():
     # ---- 7. the kernels at the main paths' inputs ----
     launched = {}
     for counts in (main_counts, long_counts['launches'], wire_counts,
-                   text_counts, facade_counts, baseline_counts, dds_counts,
-                   fleet_counts, mesh_counts):
+                   text_counts, facade_counts, baseline_counts,
+                   conformance_counts, dds_counts, fleet_counts,
+                   mesh_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
     # the widths the delta orderer was handed, over every call the paths

@@ -6,6 +6,7 @@ torch`` loads, and its entry points refuse to fall back to the CPU when
 CUDA is missing."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -104,6 +105,42 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+def test_card_lane_collects_without_jax():
+    """``chip_smoke.py`` phase 4h runs the conformance harness's ``cuda``
+    lane on a machine without JAX: with ``jax`` blocked, the harness's
+    loader imports a JAX test module against the port, and the lane of
+    ``chip_smoke.CONFORMANCE_FILES`` collects without an import error,
+    exactly ``chip_smoke.CONFORMANCE_CASES`` cases by JAX module, and
+    loads neither JAX nor the JAX package."""
+    code = (
+        'import collections, json, sys\n'
+        "sys.modules['jax'] = None\n"
+        f'sys.path[:0] = [{ROOT!r}, {os.path.join(ROOT, "tests")!r}]\n'
+        'import pytest\n'
+        'import chip_smoke\n'
+        'from test_torch_conformance_harness import load, source_module\n'
+        'assert load("test_integration").Automerge.__name__ == '
+        '"automerge_tpu_torch"\n'
+        'class Items:\n'
+        '    ids = []\n'
+        '    def pytest_collection_finish(self, session):\n'
+        '        Items.ids += [i.nodeid for i in session.items]\n'
+        f'rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", '
+        f'"-p", "no:xdist", "-p", "no:randomly", "-m", "cuda", '
+        f'"--collect-only", "-q", "--rootdir", {ROOT!r}, '
+        f'*[{ROOT!r} + "/" + f for f in chip_smoke.CONFORMANCE_FILES]], '
+        f'plugins=[Items()])\n'
+        'loaded = sorted(m for m in sys.modules if m.startswith("jax.") '
+        'or m.split(".")[0] == "automerge_tpu")\n'
+        'print(json.dumps([rc, collections.Counter(map(source_module, '
+        'Items.ids)), chip_smoke.CONFORMANCE_CASES, loaded]))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    rc, got, want, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rc == 0 and got == want and not loaded, out.stdout
 
 
 def test_entry_points_raise_without_cuda():
