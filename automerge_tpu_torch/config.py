@@ -15,7 +15,8 @@ keeps the same buckets so both packages stage byte-identical planes).
 :func:`resolve_device` is the one place an entry point turns its
 ``device`` argument into a ``torch.device``: ``None`` means CUDA, and a
 CUDA request without a visible card raises instead of carrying on on the
-CPU.
+CPU. :func:`as_tensor` is the one place a device function turns an array
+argument into a tensor.
 """
 
 from dataclasses import dataclass, replace
@@ -38,6 +39,20 @@ def resolve_device(device=None):
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}')
     return dev
+
+
+def as_tensor(a):
+    """``a`` as a tensor: a tensor as it is (on its own device), any
+    other array (numpy, or anything with ``__array__``) on the host, as
+    the reference's device functions take any array. A read-only or
+    reversed array is copied: a tensor may be written, and has no
+    negative strides."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable or min(a.strides, default=0) < 0:
+        a = a.copy()
+    return torch.from_numpy(a)
 
 
 @dataclass(frozen=True)

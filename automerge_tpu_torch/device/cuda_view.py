@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import cuda_build, cuda_grid
+from ..config import as_tensor
 
 _I32 = torch.int32
 
@@ -170,9 +171,10 @@ def _edit_core(pv, nv, pi, ni, touched, e_pad):
 
 def edit_stream(pv, nv, pi, ni, touched_u8, *, e_pad):
     """Plain edit stream over unpacked planes (cols vis format). The
-    three plain entry points take tensors or numpy arrays, as the
-    reference's take any array."""
-    pv, nv, pi, ni, touched_u8 = map(torch.as_tensor,
+    three plain entry points take tensors or any other array
+    (:func:`~automerge_tpu_torch.config.as_tensor`), as the reference's
+    take any array."""
+    pv, nv, pi, ni, touched_u8 = map(as_tensor,
                                      (pv, nv, pi, ni, touched_u8))
     m = pv.shape[1]
     return _edit_core(pv.to(torch.bool), nv.to(torch.bool), pi.to(_I32),
@@ -190,7 +192,7 @@ def _decode_packed(v):
 def edit_stream_packed(vis_packed, touched_u8, *, e_pad):
     """Plain edit stream over the packed apply's vis word plane
     (prior_vis<<31 | visible<<30 | (prior_idx+1)<<15 | (new_idx+1))."""
-    vis_packed, touched_u8 = map(torch.as_tensor, (vis_packed, touched_u8))
+    vis_packed, touched_u8 = map(as_tensor, (vis_packed, touched_u8))
     m = vis_packed.shape[1]
     pv, nv, pi, ni = _decode_packed(vis_packed.to(_I32))
     return _edit_core(pv, nv, pi, ni, _unpack_touch(touched_u8, m), e_pad)
@@ -207,7 +209,7 @@ def _decode_wide(vis_prior, vis_new):
 def edit_stream_wide(vis_prior, vis_new, touched_u8, *, e_pad):
     """Plain edit stream over the wide apply's two vis word planes
     (``visible << 22 | (idx + 1)`` each)."""
-    vis_prior, vis_new, touched_u8 = map(torch.as_tensor,
+    vis_prior, vis_new, touched_u8 = map(as_tensor,
                                          (vis_prior, vis_new, touched_u8))
     m = vis_prior.shape[1]
     pv, nv, pi, ni = _decode_wide(vis_prior.to(_I32), vis_new.to(_I32))

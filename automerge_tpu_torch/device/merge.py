@@ -28,6 +28,8 @@ sliced off. Integer dtypes are pinned to int32 throughout (torch widens
 
 import torch
 
+from ..config import as_tensor
+
 _I32 = torch.int32
 _INT32_MIN = -(1 << 31)
 
@@ -94,7 +96,11 @@ def _resolve(seg_id, actor, seq, clock, is_del, valid, num_segments):
     """Unsorted rows: segment maxima over ``seg_id`` (ids outside
     [0, num_segments) are dropped, as ``jax.ops.segment_max`` does).
     Returns {'surviving' bool[N], 'winner' int32[S], 'seg_max_actor'
-    int32[S]}; empty segments hold -1 / INT32_MIN."""
+    int32[S]}; empty segments hold -1 / INT32_MIN. Takes tensors,
+    numpy arrays or any other array (on the host), as the reference
+    takes any array."""
+    seg_id, actor, seq, clock, is_del, valid = map(
+        as_tensor, (seg_id, actor, seq, clock, is_del, valid))
     n = actor.shape[0]
     S = num_segments
     tgt, g = _seg_slots(seg_id, S)
@@ -198,7 +204,7 @@ def resolve_assignments(seg_id, actor, seq, clock, is_del, valid, *,
       num_segments: segment count (>= max seg_id + 1)
 
     Returns dict of surviving bool[N], winner int32[S] (-1 if none) and
-    seg_max_actor int32[S].
+    seg_max_actor int32[S]. Takes any array, as :func:`_resolve` does.
     """
     return _resolve(seg_id, actor, seq, clock, is_del, valid,
                     num_segments)
@@ -209,7 +215,9 @@ def resolve_assignments_batch(seg_id, actor, seq, clock, is_del, valid, *,
     """A leading document axis written out: [D, N] rows and [D, N, A]
     clocks, each document's segments resolved independently (one flat
     reduction over ``D * (S + 1)`` slots — slot S of each document is
-    its sink)."""
+    its sink). Takes any array, as :func:`resolve_assignments` does."""
+    seg_id, actor, seq, clock, is_del, valid = map(
+        as_tensor, (seg_id, actor, seq, clock, is_del, valid))
     D, N = seg_id.shape
     S = num_segments
     dev = seg_id.device

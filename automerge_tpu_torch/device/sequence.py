@@ -47,6 +47,7 @@ kernel.
 import torch
 
 from . import cuda_sequence
+from ..config import as_tensor
 
 _I32 = torch.int32
 
@@ -218,7 +219,11 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     narrow one straight from these planes up to
     ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort and
     the wide one (its variant by ``cuda_sequence.variant(K, m)``). CPU
-    planes take `_rga_order_plain`."""
+    planes take `_rga_order_plain`, and so do numpy arrays or any
+    other array (:func:`~automerge_tpu_torch.config.as_tensor` puts
+    them on the host)."""
+    parent, elem, actor, visible, valid = map(
+        as_tensor, (parent, elem, actor, visible, valid))
     if parent.device.type != 'cuda':
         return _rga_order_plain(parent, elem, actor, visible, valid)
     m = parent.shape[1]
@@ -267,7 +272,9 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
     nodes (its subwarp variant up to ``cuda_sequence.M_SUBWARP``, else
     the narrow one), else the PyTorch child sort with the anchor key and
     the wide kernel (the variant by ``cuda_sequence.delta_variant(K,
-    m)``). CPU planes take `_rga_delta_order_plain`."""
+    m)``). CPU planes and other arrays take `_rga_delta_order_plain`."""
+    parent, anchor, elem, actor, valid = map(
+        as_tensor, (parent, anchor, elem, actor, valid))
     if parent.device.type != 'cuda':
         return _rga_delta_order_plain(parent, anchor, elem, actor, valid)
     m = parent.shape[1]
@@ -288,6 +295,8 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
 def _rga_order(parent, elem, actor, visible, valid):
     """One insertion tree ([n] planes): `_rga_order_batched` on a batch
     of one."""
+    parent, elem, actor, visible, valid = map(
+        as_tensor, (parent, elem, actor, visible, valid))
     out = _rga_order_batched(parent[None], elem[None], actor[None],
                              visible[None], valid[None])
     return {'tree_pos': out['tree_pos'][0], 'vis_index': out['vis_index'][0],

@@ -23,18 +23,20 @@ collective IS the sync round. The ring variant ships ops hop-by-hop
 (P-1 rounds) and bounds per-step traffic at 1/P of the all-gather.
 
 The PyTorch port's copy of ``automerge_tpu/parallel/ici_sync.py``. Each
-function takes and returns per-peer lists (:func:`shard_peers`): entry
-``p`` is peer ``p``'s local block, leading axis 1, on its mesh entry's
-device. The union resolve goes through ``cuda_merge.dispatch_resolve``:
-the flat-map kernel on a CUDA peer, its plain version on the CPU.
+function takes and returns per-peer lists (:func:`shard_peers`,
+:class:`~.mesh.Shards`): entry ``p`` is peer ``p``'s local block,
+leading axis 1, on its mesh entry's device, and ``np.asarray`` of the
+list is the reference's [P, ...] global array. The union resolve goes
+through ``cuda_merge.dispatch_resolve``: the flat-map kernel on a CUDA
+peer, its plain version on the CPU.
 """
 
 import numpy as np
 import torch
 
 from ..device.cuda_merge import dispatch_resolve
-from .mesh import (Mesh, _mesh_devices, all_gather, pmax, ppermute, psum,
-                   shard_docs)
+from .mesh import (Mesh, Shards, _mesh_devices, all_gather, pmax, ppermute,
+                   psum, shard_docs)
 
 PEER_AXIS = 'peers'
 _I32 = torch.int32
@@ -74,7 +76,7 @@ def _resolve_union(seg, actor, seq, clock, is_del, valid, num_segments):
 
 
 def _merged(outs):
-    return {k: [o[k] for o in outs]
+    return {k: Shards(o[k] for o in outs)
             for k in ('surviving', 'winner', 'seg_max_actor')}
 
 
@@ -99,7 +101,7 @@ def sync_step(mesh, seg_id, actor, seq, clock, is_del, valid, peer_clock, *,
         gather, (seg_id, actor, seq, is_del, valid, clock))
 
     # -- clock advertisement: converged replica clock = elementwise max ----
-    new_clock = pmax(peer_clock)
+    new_clock = Shards(pmax(peer_clock))
 
     # -- convergent apply: deterministic resolve of the identical union ----
     outs = [_resolve_union(*args, num_segments) for args in
@@ -295,7 +297,7 @@ def delta_sync_round(mesh, state, *, window=64, ring=False):
         accepted.append(acc)
     shipped = psum([w.sum(dtype=_I32) for w in w_valid])[0]
     accepted = psum(accepted)[0]
-    return tuple(new), int(shipped), int(accepted)
+    return tuple(map(Shards, new)), int(shipped), int(accepted)
 
 
 def delta_sync_converge(mesh, state, *, window=64, ring=False,

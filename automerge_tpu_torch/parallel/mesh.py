@@ -20,7 +20,7 @@ from functools import reduce
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import as_tensor, resolve_device
 
 DOC_AXIS = 'docs'
 
@@ -89,16 +89,27 @@ def doc_sharding(mesh, n_rows):
     return [(s * per, (s + 1) * per) for s in range(n_dev)]
 
 
+class Shards(list):
+    """Per-shard tensors in mesh order: entry ``s`` is shard ``s``'s
+    local block, on mesh entry ``s``'s device. ``np.asarray`` reads it
+    as the reference's sharded global array reads: the blocks
+    concatenated along their leading axis, on the host."""
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.concatenate([t.detach().cpu().numpy() for t in self])
+        return out if dtype is None else out.astype(dtype)
+
+
 def shard_docs(mesh, *arrays, axis=DOC_AXIS):
     """Split arrays (numpy or tensors) along their leading (document)
-    axis over the mesh: for each array, the list of per-shard tensors,
-    shard ``s`` on entry ``s``'s device."""
+    axis over the mesh: for each array, the :class:`Shards` list of
+    per-shard tensors, shard ``s`` on entry ``s``'s device."""
     placed = []
     for a in arrays:
-        t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
-                            else a)
-        placed.append([t[lo:hi].to(dev) for (lo, hi), dev in
-                       zip(doc_sharding(mesh, t.shape[0]), mesh.devices)])
+        t = as_tensor(a)
+        placed.append(Shards(
+            t[lo:hi].to(dev) for (lo, hi), dev in
+            zip(doc_sharding(mesh, t.shape[0]), mesh.devices)))
     return tuple(placed) if len(placed) != 1 else placed[0]
 
 

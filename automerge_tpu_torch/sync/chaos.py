@@ -599,6 +599,9 @@ class SocketChaosFleet:
                                   dup=dup, cut=cut, corrupt=corrupt)
         self.endpoints = []
         self.proxies = {}              # (a, b) with a < b
+        # True while no link can lose bytes: no fault knob set, no
+        # node killed, no pair partitioned (see _quiet)
+        self._lossless = not any(self._fault_kwargs.values())
         self._run(self._start())
 
     def _run(self, coro):
@@ -654,7 +657,52 @@ class SocketChaosFleet:
                 t()
         await self._pump(6)
 
+    def _local_work(self):
+        """True while an endpoint holds a flush task not yet run or a
+        frame queued on a live socket."""
+        for ep in self.endpoints:
+            if ep.closed:
+                continue
+            for link in ep.peers.values():
+                if link.flusher is not None and not link.flusher.done():
+                    return True
+                if link.outq and link.writer is not None:
+                    return True
+        return False
+
+    def _in_flight(self):
+        """True while, on lossless links, bytes written to a socket are
+        not yet read at its other end."""
+        return self._lossless and (
+            sum(ep.bytes_sent for ep in self.endpoints)
+            != sum(ep.bytes_received for ep in self.endpoints))
+
+    async def _settle_fabric(self, turns=256, waits=50):
+        """Run the event loop while there is local work (up to ``turns``
+        turns) or bytes in flight (then up to ``waits`` more waits of 1
+        ms, for bytes the host has not delivered yet)."""
+        for i in range(turns + waits):
+            if self._in_flight():
+                await asyncio.sleep(0 if i < turns else 1e-3)
+            elif i < turns and self._local_work():
+                await asyncio.sleep(0)
+            else:
+                return
+
+    def _quiet(self):
+        """The quiet check of :meth:`run`: no endpoint :meth:`pending`
+        once the fabric has settled (:meth:`_settle_fabric`). A tick
+        ends after a fixed number of event-loop turns, and whether the
+        last frames it set off have landed by then, and their flush
+        tasks run, depends on the host's speed: without the settle
+        :meth:`run` ended a tick later on some runs than on others, and
+        every tick count read after it (a failure detector's deadlines)
+        moved with it."""
+        self._run(self._settle_fabric())
+        return not self.pending()
+
     def partition(self, a, b):
+        self._lossless = False
         self._run(self.proxies[(min(a, b), max(a, b))].sever())
 
     def heal(self, a, b):
@@ -663,6 +711,7 @@ class SocketChaosFleet:
     def kill(self, node):
         """Abrupt process death: sockets abort, nothing closes
         cleanly — peers only find out from their failure detectors."""
+        self._lossless = False
         self._run(self.endpoints[node].kill())
 
     def restart(self, node, doc_set=None, resume=True):
@@ -705,7 +754,7 @@ class SocketChaosFleet:
         start = self.now
         while self.now - start < max_ticks:
             self.tick()
-            if self.now - start >= min_ticks and not self.pending() \
+            if self.now - start >= min_ticks and self._quiet() \
                     and self.converged():
                 return self.now
         raise RuntimeError(

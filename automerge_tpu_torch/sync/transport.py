@@ -418,6 +418,10 @@ class TransportEndpoint:
         # drops out by itself
         self._inbound = weakref.WeakSet()
         self.metrics = metrics.scoped(node=str(node_id))
+        # bytes this endpoint wrote to and read from its sockets: a
+        # fleet whose links lose nothing is quiet once they are equal
+        self.bytes_sent = 0
+        self.bytes_received = 0
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -768,6 +772,7 @@ class TransportEndpoint:
                     await writer.drain()
                 self.metrics.bump('transport_frames_sent', frames)
                 self.metrics.bump('transport_bytes_sent', nbytes)
+                self.bytes_sent += nbytes
                 self.metrics.observe('transport_frames_per_syscall',
                                      frames)
         except (ConnectionError, OSError):
@@ -788,6 +793,7 @@ class TransportEndpoint:
                     break
                 self.metrics.bump('transport_bytes_received',
                                   len(data))
+                self.bytes_received += len(data)
                 with self.metrics.trace_span('transport.read',
                                              bytes=len(data)):
                     events = decoder.feed(data)

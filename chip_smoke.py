@@ -207,12 +207,17 @@ _HBM_BYTES_PER_S = 3.35e12
 
 # phase 4h: the test files that re-collect the JAX package's own suites
 # against the port (their harness: tests/test_torch_conformance_harness.py)
-# and their cuda-lane cases by JAX test module. test_sequence_index and
-# test_suffix_window (tests/test_torch_conformance_index.py) import jax,
-# so they run on the CPU only.
+# and their cuda-lane cases by JAX test module (the reference's `slow`
+# cases included). The modules of tests/test_torch_conformance_{index,
+# host,metrics,mesh}.py import or run jax (test_stage_cache through
+# test_sequence_index), so they run on the CPU only.
 CONFORMANCE_FILES = ('tests/test_torch_conformance_reference.py',
                      'tests/test_torch_conformance_device.py',
-                     'tests/test_torch_conformance_wire.py')
+                     'tests/test_torch_conformance_wire.py',
+                     'tests/test_torch_conformance_serving.py',
+                     'tests/test_torch_conformance_fleet.py',
+                     'tests/test_torch_conformance_sync.py',
+                     'tests/test_torch_conformance_engine.py')
 CONFORMANCE_CASES = {
     'test_integration': 59, 'test_integration_ext': 41, 'test_proxies': 40,
     'test_text': 6, 'test_connection': 18, 'test_frontend': 13,
@@ -222,7 +227,13 @@ CONFORMANCE_CASES = {
     'test_backend_worker': 6, 'test_snapshot': 31, 'test_compaction': 23,
     'test_interop': 12, 'test_text_block': 33, 'test_cross_engine': 47,
     'test_wire': 29, 'test_wire_v2': 77, 'test_wire_sync': 42,
-    'test_general_backend': 22, 'test_general_materialize': 19}
+    'test_general_backend': 22, 'test_general_materialize': 19,
+    'test_serving': 40, 'test_control': 15, 'test_telemetry': 18,
+    'test_tracing': 22, 'test_fleetsim': 15, 'test_general_sync': 8,
+    'test_batched_sync': 6, 'test_wire_v3': 53, 'test_transport': 37,
+    'test_chaos': 42, 'test_socket_chaos': 4, 'test_general': 25,
+    'test_blocks': 31, 'test_integration_device': 100, 'test_native': 20,
+    'test_traces': 10}
 
 
 def gen_mixed_docs(n_docs, list_ops, doc0=0):

@@ -1,14 +1,14 @@
-"""The JAX package's sequence-index and suffix-window suites on the
-PyTorch port: the general engine's incremental index, its invalidation
-paths, the edit stream's plain versions and the suffix window,
-re-collected against ``automerge_tpu_torch`` by
-``test_torch_conformance_harness.recollect``.
+"""The JAX package's sequence-index, suffix-window and staging-cache
+suites on the PyTorch port: the general engine's incremental index, its
+invalidation paths, the edit stream's plain versions, the suffix window
+and the warm staging cache, re-collected against
+``automerge_tpu_torch`` by ``test_torch_conformance_harness.recollect``.
 
 ``tests/test_sequence_index.py`` imports ``jax`` itself (and
-``test_suffix_window`` imports from it), so this file runs where JAX
-is installed, in the ``cpu`` lane only: their cases read the engine's
-planes through ``jax.device_get`` and numpy, which take host arrays,
-and ``chip_smoke.py``'s card lane runs no JAX.
+``test_suffix_window`` and ``test_stage_cache`` import from it), so this
+file runs where JAX is installed, in the ``cpu`` lane only: their cases
+read the engine's planes through ``jax.device_get`` and numpy, which
+take host arrays, and ``chip_smoke.py``'s card lane runs no JAX.
 ``automerge_tpu.device.pallas_view`` maps to its CUDA counterpart
 ``automerge_tpu_torch.device.cuda_view``.
 """
@@ -24,7 +24,7 @@ from automerge_tpu_torch.device import cuda_view  # noqa: E402
 
 torch.set_num_threads(1)
 
-MODULES = ('test_sequence_index', 'test_suffix_window')
+MODULES = ('test_sequence_index', 'test_suffix_window', 'test_stage_cache')
 
 
 def _force_raises_instead_of_falling_back(self):

@@ -133,3 +133,80 @@ def test_segmented_scans_match_jax(cols):
     a = np.asarray(jax.jit(jm._seg_row_max)(f_j, v_j))
     b = tm._seg_row_max(f_t, v_t).numpy()
     assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+class _ArrayLike:
+    """An array that is neither a tensor nor a numpy array: it has only
+    ``__array__``."""
+
+    def __init__(self, a):
+        self._a = np.asarray(a)
+
+    def __array__(self, dtype=None, copy=None):
+        return self._a if dtype is None else self._a.astype(dtype)
+
+
+def _same_tensors(got, want):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _same_tensors(got[k], want[k])
+        return
+    assert got.dtype == want.dtype and got.device == want.device
+    assert torch.equal(got, want)
+
+
+_WRAPS = pytest.mark.parametrize('wrap', [np.asarray, _ArrayLike,
+                                          jnp.asarray],
+                                 ids=['numpy', 'array-like', 'jax'])
+
+
+@_WRAPS
+def test_resolve_assignments_take_any_array(wrap):
+    """``resolve_assignments[_batch]`` take numpy arrays and any other
+    array, as the reference's do, and give what CPU tensors of the same
+    rows give (bool and int32 outputs, on the host)."""
+    rng = np.random.default_rng(300)
+    D, n, S, A = 3, 32, 12, 4
+    cols = [_rows(rng, n, int(rng.integers(1, n + 1)), S, A, False)
+            for _ in range(D)]
+    args = [np.stack([c[i] for c in cols]) for i in range(6)]
+    want = tm.resolve_assignments_batch(*_to_t(*args), num_segments=S)
+    _same_tensors(tm.resolve_assignments_batch(
+        *map(wrap, args), num_segments=S), want)
+    want1 = tm.resolve_assignments(*_to_t(*cols[0]), num_segments=S)
+    _same_tensors(tm.resolve_assignments(*map(wrap, cols[0]),
+                                         num_segments=S), want1)
+    assert want1['surviving'].dtype == torch.bool
+    assert want1['winner'].dtype == torch.int32
+
+
+@_WRAPS
+def test_clock_functions_take_any_array(wrap):
+    """``less_or_equal``, ``union``, ``causally_ready`` and ``advance``
+    (``device/clock.py``) take numpy arrays and any other array, as the
+    reference's do, and give what CPU tensors give (bool and int32
+    outputs); the values are the JAX package's."""
+    from automerge_tpu.device import clock as jc
+    from automerge_tpu_torch.device import clock as tc
+    rng = np.random.default_rng(301)
+    C, A = 12, 5
+    doc_clock = rng.integers(0, 4, A).astype(np.int32)
+    deps = rng.integers(0, 4, (C, A)).astype(np.int32)
+    actor = rng.integers(0, A, C).astype(np.int32)
+    seq = rng.integers(1, 6, C).astype(np.int32)
+    other = rng.integers(0, 4, (C, A)).astype(np.int32)
+    ready = tc.causally_ready(*_to_t(doc_clock, deps, actor, seq))
+    cases = [
+        (tc.less_or_equal, jc.less_or_equal, (deps, doc_clock)),
+        (tc.union, jc.union, (deps, other)),
+        (tc.causally_ready, jc.causally_ready, (doc_clock, deps, actor,
+                                                seq)),
+        (tc.advance, jc.advance, (doc_clock, actor, seq,
+                                  ready.numpy()))]
+    for port, ref, args in cases:
+        want = port(*_to_t(*args))
+        got = port(*map(wrap, args))
+        _same_tensors(got, want)
+        assert np.array_equal(np.asarray(ref(*_to_j(*args))), want.numpy())
+        assert np.asarray(ref(*_to_j(*args))).dtype == want.numpy().dtype

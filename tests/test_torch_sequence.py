@@ -103,3 +103,36 @@ def test_rga_delta_order_matches_jax(K, m):
     valid = planes[4]
     assert want.dtype == got.dtype
     assert np.array_equal(want[valid], got[valid])
+
+
+class _ArrayLike:
+    """An array that is neither a tensor nor a numpy array: it has only
+    ``__array__``."""
+
+    def __init__(self, a):
+        self._a = a
+
+    def __array__(self, dtype=None, copy=None):
+        return self._a if dtype is None else self._a.astype(dtype)
+
+
+def _same_tensors(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert got[k].device == want[k].device, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize('wrap', [np.asarray, _ArrayLike, jnp.asarray],
+                         ids=['numpy', 'array-like', 'jax'])
+def test_rga_order_takes_any_array(wrap):
+    """``rga_order`` and ``rga_order_batch`` take numpy arrays and any
+    other array, as the reference's take any array, and give what CPU
+    tensors of the same planes give (int32 outputs, on the host)."""
+    planes = _trees(np.random.default_rng(21), 4, 33)
+    want = ts.rga_order_batch(*map(torch.as_tensor, planes))
+    _same_tensors(ts.rga_order_batch(*map(wrap, planes)), want)
+    want1 = ts.rga_order(*(torch.as_tensor(p[0]) for p in planes))
+    _same_tensors(ts.rga_order(*(wrap(p[0]) for p in planes)), want1)
+    assert want1['vis_index'].dtype == torch.int32

@@ -279,3 +279,44 @@ def test_a_closing_socket_leaves_its_frames_queued():
         loop.close()
     assert list(link.outq) == [(0, [b'frame'], 5)]
     assert link.writer is None and writer.closed
+
+
+def _detection(turns):
+    """A lossless two-node socket fleet with every tick's pump cut to
+    ``turns`` event-loop turns: one write, ``run()``, node1 killed,
+    ticks until node0 marks it down. Returns (the tick ``run`` ended
+    at, ticks to suspect, ticks to down)."""
+    from automerge_tpu_torch.sync import chaos
+    pump = chaos.SocketChaosFleet._pump
+    sets = [GeneralDocSet(16, device='cpu') for _ in range(2)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chaos.SocketChaosFleet, '_pump',
+                   lambda self, rounds: pump(self, turns))
+        fleet = chaos.SocketChaosFleet(sets, seed=7, suspect_after=6,
+                                       dead_after=12)
+        try:
+            sets[0].apply_changes_batch({'doc0': [{
+                'actor': 'a0', 'seq': 1, 'deps': {}, 'ops': [{
+                    'action': 'set', 'obj': ROOT_ID, 'key': 'k',
+                    'value': 1}]}]})
+            ran = fleet.run(max_ticks=300)
+            fleet.kill(1)
+            t0, seen = fleet.now, {}
+            while 'down' not in seen and fleet.now < t0 + 40:
+                fleet.tick()
+                state = fleet.endpoints[0].membership()['node1']
+                seen.setdefault(state, fleet.now - t0)
+            return ran, seen.get('suspect'), seen.get('down')
+        finally:
+            fleet.close()
+
+
+@pytest.mark.parametrize('turns', [1, 3, 12])
+def test_socket_fleet_ticks_do_not_depend_on_the_hosts_speed(turns):
+    """``SocketChaosFleet.run`` settles the fabric before its quiet
+    check (the bytes in flight on lossless links, the flush tasks a
+    tick left unrun), so where a tick's last frames happen to land does
+    not move the tick it ends at, nor the failure detector's deadlines
+    counted after it: a tick of 1, 3 or 12 event-loop turns (a slower
+    or faster host) gives what the default 6 give."""
+    assert _detection(turns) == _detection(6)
