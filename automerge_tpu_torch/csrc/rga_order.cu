@@ -1,4 +1,4 @@
-// RGA document order of every dirty sequence object, in three variants.
+// RGA document order of every dirty sequence object, in four variants.
 //
 // Replaces the TPU kernel in automerge_tpu/device/pallas_sequence.py:63-208
 // (_make_kernel, _rga_pallas_padded, rga_order_batch_pallas). That kernel
@@ -83,14 +83,48 @@
 // butterfly shuffles (or one reduction with the group's mask from 16
 // lanes up), and only the two scatters go through shared memory.
 //
-// Wide variant (rga_order_kernel, any m, after a torch child sort): one
-// thread block per job row, four planes of m+1 words with one
-// __syncthreads per doubling round, a CUB block scan in chunks with a
-// carried offset. The planes live in dynamic shared memory while they fit
-// (m <= 12,799) and in a global scratch the caller allocates past that.
-// An O(m^2) rank count would be pathological at those widths (a 12,799-
-// node list built by prepending needs 164M compares in one block), so the
-// wide variant keeps the O(m log m) sort outside.
+// Wide variant (rga_wide_kernel, rows past 512 nodes that are not a few
+// long ones; rga_wide_launch): one block of 1,024 threads a job row, from
+// the raw planes, the child sort inside. It replaces the TPU kernel at
+// pallas_sequence.py:165 (_rga_pallas_padded) together with the child
+// sort the reference leaves to XLA (pallas_sequence.py:21-23, :182-200).
+// What bounds it on the H100: a row's work is a chain of dependent steps
+// (the sort's passes, 2 * ceil(log2 m) + 2 doubling rounds at most), each
+// a sweep of shared-memory loads and a block barrier, so its time is set
+// by the number of steps and the slots each sweeps, not by the
+// K*m*(14 + 12) bytes it must move (the delta mode: K*m*(17 + 4)). The
+// general engine pads every job row of a tick to the tick's widest row
+// (a 6,144-node text makes every short list of the tick a 6,144-slot
+// row), so what the design does is cut the steps and the slots:
+//   - the child sort is a stable LSD radix sort in shared memory: the key
+//     (parent_adj asc, anchor_k asc, elem desc, actor desc) taken one
+//     field at a time over its span in the row, 8 bits a pass, each pass
+//     a warp-chunked counting sort (__match_any_sync ranks, a block scan
+//     of a [digit][warp] table): O(m) a pass, the passes set by the
+//     spans' bits (the prepend case and 128-bit keys included), never a
+//     rank count (the narrow kernel's O(m^2) one; 164M compares for a
+//     12,799-node prepend row);
+//   - the row is staged once with cp.async (valid first, to find the
+//     extent; parent, elem, actor and anchor then; visible during the
+//     sort), so every gather after it is a shared-memory load, and every
+//     output is written once, coalesced;
+//   - the work covers the row's extent E (one past its last valid node),
+//     not its padded width, where a block vote shows every valid node's
+//     parent to be the head or an earlier valid node: then no valid
+//     node's climb or successor leaves [0, E), the padding's outputs are
+//     fixed (tree_pos d0 - 1, vis_index -1, node_at_pos n - 1) and are
+//     written directly. Any other row (a valid node under an invalid,
+//     later or out-of-range parent, whose climb may walk the padding's
+//     sibling links or a cycle) works on the whole width, exactly as the
+//     plain version does;
+//   - the climb and the ranking stop after the first round in which no
+//     value changed (a fixed point stays one, so no output changes), at
+//     most `rounds` rounds (a cycle among garbage nodes runs them all);
+//   - the planes take 20 bytes a node and the valid and visible bytes
+//     (the delta mode 24 and 1), staged planes reused as work planes once
+//     the sort has read them, up to 215,040 bytes beside a 16 KB count
+//     table (m <= 9,771; the delta mode 8,599); wider rows run the same
+//     code on a global scratch of four planes a row, L2-resident.
 //
 // Grid variant (rga_grid_kernel, after the same sort): a batch of one or
 // a few long rows (a long text, a replayed editing trace) would run the
@@ -108,9 +142,9 @@
 #include <cstddef>
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
-#include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
 #include "grid.cuh"
@@ -123,178 +157,6 @@ constexpr int kSmemLimit = 200 * 1024;
 __host__ __device__ inline size_t plane_words(int m) {
   return static_cast<size_t>(m) + 1;
 }
-
-template <int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
-rga_order_kernel(const int32_t* __restrict__ order,
-                 const int32_t* __restrict__ parent_adj,
-                 const int32_t* __restrict__ parent,
-                 const uint8_t* __restrict__ visible,
-                 const uint8_t* __restrict__ valid,
-                 int32_t* __restrict__ tree_pos,
-                 int32_t* __restrict__ vis_index,
-                 int32_t* __restrict__ node_at_pos,
-                 int32_t* __restrict__ length, int32_t* scratch, int m,
-                 int rounds, int use_smem) {
-  using BlockScan = cub::BlockScan<int, BLOCK>;
-  using BlockReduce = cub::BlockReduce<int, BLOCK>;
-  __shared__ union {
-    typename BlockScan::TempStorage scan;
-    typename BlockReduce::TempStorage reduce;
-  } tmp;
-  extern __shared__ int32_t smem[];
-
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n = m;
-  const size_t W = plane_words(m);
-  int32_t* base = use_smem ? smem : scratch + static_cast<size_t>(k) * 4 * W;
-  int32_t* P[4] = {base, base + W, base + 2 * W, base + 3 * W};
-
-  const size_t off = static_cast<size_t>(k) * m;
-  const int32_t* ord = order + off;
-  const int32_t* padj = parent_adj + off;
-  const int32_t* par = parent + off;
-  const uint8_t* vis = visible + off;
-  const uint8_t* val = valid + off;
-
-  // ---- 1. thread the tree: P0 = first_child, P1 = next_sibling ----
-  int32_t* fc = P[0];
-  int32_t* ns = P[1];
-  for (int i = tid; i < n; i += BLOCK) fc[i] = -1;
-  __syncthreads();
-  for (int s = tid; s < n; s += BLOCK) {
-    const int o = ord[s];
-    const int p = padj[o];
-    const bool start = s == 0 || padj[ord[s - 1]] != p;
-    if (start && p >= 0 && p < n) fc[p] = o;
-    int nx = -1;
-    if (s + 1 < n) {
-      const int o2 = ord[s + 1];
-      if (padj[o2] == p) nx = o2;
-    }
-    ns[o] = nx;
-  }
-  __syncthreads();
-  if (tid == 0) ns[0] = -1;   // head and padding share a sort bucket
-  __syncthreads();
-
-  // ---- 2. climb to the nearest ancestor-or-self with a sibling ----
-  int32_t* c_cur = P[2];
-  int32_t* c_nxt = P[3];
-  for (int i = tid; i < n; i += BLOCK) {
-    c_cur[i] = (ns[i] >= 0 || i == 0) ? i : min(max(par[i], 0), n - 1);
-  }
-  __syncthreads();
-  for (int r = 0; r < rounds; ++r) {
-    for (int i = tid; i < n; i += BLOCK) c_nxt[i] = c_cur[c_cur[i]];
-    __syncthreads();
-    int32_t* t = c_cur;
-    c_cur = c_nxt;
-    c_nxt = t;
-  }
-  // successor chain into the free climb plane: nxt = succ or n
-  int32_t* nx_cur = c_nxt;
-  for (int i = tid; i < n; i += BLOCK) {
-    int succ = fc[i] >= 0 ? fc[i] : ns[c_cur[i]];
-    if (!val[i]) succ = -1;
-    nx_cur[i] = succ >= 0 ? succ : n;
-  }
-  if (tid == 0) nx_cur[n] = n;
-  __syncthreads();
-
-  // ---- 3. list-rank the chain: dist in P0/P1, nxt in the climb pair ----
-  int32_t* nx_nxt = c_cur;
-  int32_t* d_cur = P[0];
-  int32_t* d_nxt = P[1];
-  for (int i = tid; i <= n; i += BLOCK) d_cur[i] = i < n ? 1 : 0;
-  __syncthreads();
-  for (int r = 0; r < rounds; ++r) {
-    for (int i = tid; i <= n; i += BLOCK) {
-      const int j = nx_cur[i];
-      d_nxt[i] = d_cur[i] + d_cur[j];
-      nx_nxt[i] = nx_cur[j];
-    }
-    __syncthreads();
-    int32_t* t = d_cur;
-    d_cur = d_nxt;
-    d_nxt = t;
-    t = nx_cur;
-    nx_cur = nx_nxt;
-    nx_nxt = t;
-  }
-  // tree positions into d_nxt; node_at_pos into nx_nxt (both free now)
-  int32_t* tp = d_nxt;
-  int32_t* nap = nx_nxt;
-  const int d0 = d_cur[0];
-  for (int i = tid; i < n; i += BLOCK) {
-    const int t = d0 - d_cur[i];
-    tp[i] = t;
-    tree_pos[off + i] = t;
-  }
-  for (int p = tid; p <= n; p += BLOCK) nap[p] = n - 1;
-  __syncthreads();
-
-  // ---- 4. visibility scan ----
-  int off_chain = 0;
-  for (int i = tid; i < n; i += BLOCK) {
-    const int t = tp[i];
-    if (val[i] && t > 0) {
-      if (t <= n) nap[t] = i;
-    } else {
-      off_chain = 1;
-    }
-  }
-  off_chain = __syncthreads_or(off_chain);
-  if (off_chain && tid == 0) nap[0] = 0;
-  __syncthreads();
-  // vis_ordered into d_cur (the final distances are no longer needed:
-  // every thread read d0 before the barrier above)
-  int32_t* vo = d_cur;
-  for (int p = tid; p < n; p += BLOCK) {
-    const int j = nap[p];
-    node_at_pos[off + p] = j;
-    vo[p] = (val[j] && tp[j] > 0 && vis[j]) ? 1 : 0;
-  }
-  __syncthreads();
-  int carry = 0;
-  for (int b = 0; b < n; b += BLOCK) {
-    const int p = b + tid;
-    const int x = p < n ? vo[p] : 0;
-    int y, total;
-    BlockScan(tmp.scan).ExclusiveSum(x, y, total);
-    if (p < n) vo[p] = y + carry;
-    carry += total;
-    __syncthreads();        // temp storage reuse + vo visibility
-  }
-  int mine = 0;
-  for (int i = tid; i < n; i += BLOCK) {
-    const int t = tp[i];
-    const bool shown = vis[i] && val[i] && t > 0;
-    vis_index[off + i] = shown ? vo[min(max(t, 0), n - 1)] : -1;
-    mine += shown;
-  }
-  const int total = BlockReduce(tmp.reduce).Sum(mine);
-  if (tid == 0) length[k] = total;
-}
-
-template <int BLOCK>
-int launch(const int32_t* order, const int32_t* parent_adj,
-           const int32_t* parent, const uint8_t* visible,
-           const uint8_t* valid, int32_t* tree_pos, int32_t* vis_index,
-           int32_t* node_at_pos, int32_t* length, int32_t* scratch, int K,
-           int m, int rounds, cudaStream_t stream) {
-  const size_t bytes = 4 * plane_words(m) * 4;
-  const int use_smem = bytes <= static_cast<size_t>(kSmemLimit);
-  const size_t smem = use_smem ? bytes : 0;
-  const cudaError_t e = opt_in_smem(rga_order_kernel<BLOCK>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rga_order_kernel<BLOCK><<<K, BLOCK, smem, stream>>>(
-      order, parent_adj, parent, visible, valid, tree_pos, vis_index,
-      node_at_pos, length, scratch, m, rounds, use_smem);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---- narrow variant: one warp per job row --------------------------------
 
@@ -1019,6 +881,569 @@ int subwarp_dispatch(const int32_t* parent, const int32_t* anchor,
 }
 
 
+// ---- wide variant: one block a row, the child sort inside ---------------
+
+constexpr int kWideBlock = 1024;
+constexpr int kWideWarps = kWideBlock / 32;
+constexpr int kRadixBits = 8;                        // one digit a pass
+constexpr int kCountEntries = (1 << kRadixBits) * kWideWarps;
+constexpr int kScanItems = kCountEntries / kWideBlock;
+// the H100's shared memory a block can opt into, and the part of it the
+// shared-memory variant's static storage (count table, block scan,
+// scalars) may take; the rest holds the row's planes
+constexpr size_t kWideSmemTotal = 232448;
+constexpr size_t kWideStatic = 17 * 1024;
+constexpr size_t kWideDynLimit = kWideSmemTotal - kWideStatic;
+
+// Words of one plane of the wide variant: m + 1 (the terminator slot)
+// rounded up to four, so that every plane starts 16-byte aligned.
+__host__ __device__ inline size_t wide_words(int m) {
+  return (static_cast<size_t>(m) + 4) & ~static_cast<size_t>(3);
+}
+
+// Dynamic shared memory of the shared-memory variant at width m: the
+// staged parent, elem and actor planes (and anchor in the delta mode),
+// the two index planes of the sort, and the valid bytes (and visible in
+// the order mode). The index planes and the staged planes, once the sort
+// has read them, are the threading, doubling and scan planes.
+__host__ __device__ inline size_t wide_smem_bytes(int m, bool delta) {
+  return (delta ? 6 : 5) * 4 * wide_words(m) +
+         (delta ? 1 : 2) * round16(static_cast<size_t>(m));
+}
+
+template <bool SMEM>
+struct WideShared {
+  // a count needs 16 bits while the row fits shared memory (m < 65,536)
+  using Count = typename std::conditional<SMEM, uint16_t, uint32_t>::type;
+  using BlockScan =
+      cub::BlockScan<int, kWideBlock, cub::BLOCK_SCAN_WARP_SCANS>;
+  __align__(16) Count cnt[kCountEntries];   // [digit][warp], digit-major
+  typename BlockScan::TempStorage scan;
+  int last;                                  // the last valid node
+  int lo[4], hi[4];      // span of each key field: parent_adj, anchor_k,
+                         // elem, actor
+  int shown;
+};
+static_assert(sizeof(WideShared<true>) <= kWideStatic,
+              "the wide variant's static shared memory passes its reserve");
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async4(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start asynchronous copies of words [0, cnt) of a row of n words into
+// shared memory (16-byte copies where the row starts 16-byte aligned, 4
+// bytes otherwise and for the tail); the caller commits and waits.
+__device__ __forceinline__ void stage_async(int32_t* s,
+                                            const int32_t* __restrict__ g,
+                                            int cnt, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int q4 = min((cnt + 3) >> 2, n >> 2);
+    for (int q = threadIdx.x; q < q4; q += kWideBlock) {
+      cp_async16(s + 4 * q, g + 4 * q);
+    }
+    done = 4 * q4;
+  }
+  for (int i = done + threadIdx.x; i < cnt; i += kWideBlock) {
+    cp_async4(s + i, g + i);
+  }
+}
+
+// The same for bytes; a row that does not start 16-byte aligned, and the
+// tail, are copied with plain loads.
+__device__ __forceinline__ void stage_async_bytes(
+    uint8_t* s, const uint8_t* __restrict__ g, int cnt, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int q16 = min((cnt + 15) >> 4, n >> 4);
+    for (int q = threadIdx.x; q < q16; q += kWideBlock) {
+      cp_async16(s + 16 * q, g + 16 * q);
+    }
+    done = 16 * q16;
+  }
+  for (int i = done + threadIdx.x; i < cnt; i += kWideBlock) s[i] = g[i];
+}
+
+// The exclusive scan of the count table's first L entries in place,
+// digit-major: entry (d, w) becomes the sorted position of the first node
+// of digit d in warp w's chunk.
+template <bool SMEM>
+__device__ __forceinline__ void scan_counts(WideShared<SMEM>& sh, int L) {
+  using BlockScan = typename WideShared<SMEM>::BlockScan;
+  const int base = threadIdx.x * kScanItems;
+  int v[kScanItems];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    v[j] = base + j < L ? static_cast<int>(sh.cnt[base + j]) : 0;
+    sum += v[j];
+  }
+  int pre;
+  BlockScan(sh.scan).ExclusiveSum(sum, pre);
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    if (base + j < L) sh.cnt[base + j] = pre;
+    pre += v[j];
+  }
+  __syncthreads();
+}
+
+// One stable counting pass of the sort: the node indexes in[0, S) into
+// out[0, S), ordered by digit(node) in [0, D), ties in input order. Warp
+// w owns one contiguous chunk of the input; it counts its chunk's digits
+// 32 nodes at a time (__match_any_sync groups a digit's lanes, the
+// group's lowest lane adds the group's size), a block scan of the
+// [digit][warp] table gives each (digit, warp) its first output slot, and
+// a second walk places every node at that slot plus its rank among the
+// lower lanes of its group. O(S) work and O(D * warps) for the table.
+template <bool SMEM, typename Digit>
+__device__ __forceinline__ void radix_pass(const int32_t* in, int32_t* out,
+                                           int S, int D, Digit digit,
+                                           WideShared<SMEM>& sh) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = min(kWideWarps, (S + 31) >> 5);
+  const int per = (((S + nw - 1) / nw) + 31) & ~31;
+  const int L = D * nw;
+  for (int e = threadIdx.x; e < L; e += kWideBlock) sh.cnt[e] = 0;
+  __syncthreads();
+  const int lo = warp * per;
+  const int hi = min(lo + per, S);
+  const unsigned below = (1u << lane) - 1u;
+  if (warp < nw) {
+    for (int b = lo; b < hi; b += 32) {
+      const int s = b + lane;
+      const bool live = s < hi;
+      const int d = live ? digit(in[s]) : D + lane;   // a unique dummy
+      const unsigned peers = __match_any_sync(kFull, d);
+      if (live && (peers & below) == 0) {
+        sh.cnt[d * nw + warp] += __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  scan_counts(sh, L);
+  if (warp < nw) {
+    for (int b = lo; b < hi; b += 32) {
+      const int s = b + lane;
+      const bool live = s < hi;
+      const int v = live ? in[s] : 0;
+      const int d = live ? digit(v) : D + lane;
+      const unsigned peers = __match_any_sync(kFull, d);
+      int at = 0;
+      if (live) at = sh.cnt[d * nw + warp];
+      __syncwarp();
+      if (live) {
+        out[at + __popc(peers & below)] = v;
+        if ((peers & below) == 0) sh.cnt[d * nw + warp] = at + __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// The RGA order of one job row per block, from the raw planes, the child
+// sort included (the design note at the top of this file). SMEM: the row
+// is staged into dynamic shared memory and every later gather is a
+// shared-memory load; else the row is read in place and the work planes
+// are a global scratch of 4 * wide_words(m) words a row (L2-resident).
+// anchor != nullptr is the delta mode: the anchor key, tree_pos only.
+template <bool SMEM>
+__global__ void __launch_bounds__(kWideBlock, 1)
+rga_wide_kernel(const int32_t* __restrict__ parent,
+                const int32_t* __restrict__ elem,
+                const int32_t* __restrict__ actor,
+                const int32_t* __restrict__ anchor,
+                const uint8_t* __restrict__ visible,
+                const uint8_t* __restrict__ valid,
+                int32_t* __restrict__ tree_pos,
+                int32_t* __restrict__ vis_index,
+                int32_t* __restrict__ node_at_pos,
+                int32_t* __restrict__ length, int32_t* scratch, int m,
+                int rounds) {
+  __shared__ WideShared<SMEM> sh;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  using BlockScan = typename WideShared<SMEM>::BlockScan;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int n = m;
+  const bool delta = anchor != nullptr;
+  const size_t off = static_cast<size_t>(blockIdx.x) * m;
+  const size_t W = wide_words(m);
+
+  // the row's planes: read-only sources, the sort's two index planes and
+  // two work planes (in shared memory the staged elem and actor planes,
+  // dead once the sort has read them)
+  const int32_t* par;
+  const int32_t* el;
+  const int32_t* ac;
+  const int32_t* an;
+  const uint8_t* vl;
+  const uint8_t* vb;
+  int32_t *PX, *PY, *P2, *P3;
+  int32_t *SA = nullptr, *SE = nullptr, *SC = nullptr, *SK = nullptr;
+  uint8_t *SL = nullptr, *SV = nullptr;
+  if (SMEM) {
+    int32_t* w = reinterpret_cast<int32_t*>(wide_smem);
+    SA = w;
+    SE = w + W;
+    SC = w + 2 * W;
+    PX = w + 3 * W;
+    PY = w + 4 * W;
+    SK = delta ? w + 5 * W : nullptr;
+    SL = reinterpret_cast<uint8_t*>(w + (delta ? 6 : 5) * W);
+    SV = delta ? nullptr : SL + round16(static_cast<size_t>(n));
+    par = SA;
+    el = SE;
+    ac = SC;
+    an = SK;
+    vl = SL;
+    vb = SV;
+    P2 = SE;
+    P3 = SC;
+  } else {
+    int32_t* w = scratch + static_cast<size_t>(blockIdx.x) * 4 * W;
+    PX = w;
+    PY = w + W;
+    P2 = w + 2 * W;
+    P3 = w + 3 * W;
+    par = parent + off;
+    el = elem + off;
+    ac = actor + off;
+    an = delta ? anchor + off : nullptr;
+    vl = valid + off;
+    vb = delta ? nullptr : visible + off;
+  }
+  if (tid == 0) {
+    sh.last = -1;
+    sh.shown = 0;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      sh.lo[f] = INT32_MAX;
+      sh.hi[f] = INT32_MIN;
+    }
+  }
+  __syncthreads();
+
+  // ---- the valid extent: E = 1 + the last valid node (staged) ----
+  {
+    const uint8_t* g = valid + off;
+    int last = -1;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+      const int q16 = n >> 4;
+      for (int q = tid; q < q16; q += kWideBlock) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(g) + q);
+        if (SMEM) reinterpret_cast<uint4*>(SL)[q] = x;
+        const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          if (wd[j]) {
+            last = max(last, 16 * q + 4 * j + ((31 - __clz(wd[j])) >> 3));
+            break;
+          }
+        }
+      }
+      done = 16 * q16;
+    }
+    for (int i = done + tid; i < n; i += kWideBlock) {
+      const uint8_t b = g[i];
+      if (SMEM) SL[i] = b;
+      if (b) last = max(last, i);
+    }
+    last = __reduce_max_sync(kFull, last);
+    if (lane == 0) atomicMax(&sh.last, last);
+  }
+  __syncthreads();
+  const int E = max(sh.last + 1, 1);
+
+  // ---- stage [0, E): parent, elem, actor (anchor); visible apart ----
+  if (SMEM) {
+    stage_async(SA, parent + off, E, n);
+    stage_async(SE, elem + off, E, n);
+    stage_async(SC, actor + off, E, n);
+    if (delta) stage_async(SK, anchor + off, E, n);
+    cp_async_commit();
+    if (!delta) stage_async_bytes(SV, visible + off, E, n);
+    cp_async_commit();
+  }
+  for (int s = tid; s < E; s += kWideBlock) PX[s] = s;   // while in flight
+  if (SMEM) cp_async_wait<1>();
+  __syncthreads();
+
+  // ---- the extent vote: work on [0, E) only when every valid node's
+  // parent is the head or an earlier valid node (an acyclic tree of the
+  // valid nodes under the head), else on the whole width ----
+  int bad = 0;
+  for (int i = 1 + tid; i < E; i += kWideBlock) {
+    if (vl[i]) {
+      const int p = par[i];
+      if (p != 0 && !(p > 0 && p < i && vl[p])) bad = 1;
+    }
+  }
+  const bool ext = !__syncthreads_or(bad);
+  const int S = ext ? E : n;
+  if (S > E) {
+    if (SMEM) {
+      for (int i = E + tid; i < n; i += kWideBlock) {
+        SA[i] = parent[off + i];
+        SE[i] = elem[off + i];
+        SC[i] = actor[off + i];
+        if (delta) {
+          SK[i] = anchor[off + i];
+        } else {
+          SV[i] = visible[off + i];
+        }
+      }
+    }
+    for (int s = E + tid; s < n; s += kWideBlock) PX[s] = s;
+    __syncthreads();
+  }
+  if (!delta) {         // the padding's fixed outputs
+    for (int i = S + tid; i < n; i += kWideBlock) {
+      vis_index[off + i] = -1;
+      node_at_pos[off + i] = n - 1;
+    }
+  }
+
+  // the sort key's fields: parent_adj (the head and the invalid nodes
+  // bucketed at S, after every valid node), anchor_k, elem, actor
+  auto padj = [&](int v) { return (vl[v] && v != 0) ? par[v] : S; };
+  auto akey = [&](int v) { return (delta && padj(v) == 0) ? an[v] : 0; };
+
+  // ---- the fields' spans over [0, S) ----
+  {
+    int lo[4] = {INT32_MAX, INT32_MAX, INT32_MAX, INT32_MAX};
+    int hi[4] = {INT32_MIN, INT32_MIN, INT32_MIN, INT32_MIN};
+    for (int v = tid; v < S; v += kWideBlock) {
+      const int x[4] = {padj(v), akey(v), el[v], ac[v]};
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        lo[f] = min(lo[f], x[f]);
+        hi[f] = max(hi[f], x[f]);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      lo[f] = __reduce_min_sync(kFull, lo[f]);
+      hi[f] = __reduce_max_sync(kFull, hi[f]);
+      if (lane == 0) {
+        atomicMin(&sh.lo[f], lo[f]);
+        atomicMax(&sh.hi[f], hi[f]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- 0. the child sort: a stable LSD radix sort of the node indexes
+  // by (parent_adj asc, anchor_k asc, elem desc, actor desc), one field at
+  // a time from the least significant, kRadixBits bits a pass over each
+  // field's span (x - min ascending, max - x descending); a stable sort of
+  // index-ordered input breaks the last ties by index ----
+  int32_t* src = PX;
+  int32_t* dst = PY;
+  for (int f = 3; f >= 0; --f) {
+    const uint32_t lo = static_cast<uint32_t>(sh.lo[f]);
+    const uint32_t hi = static_cast<uint32_t>(sh.hi[f]);
+    const uint32_t span = hi - lo;
+    const int bits = span ? 32 - __clz(span) : 0;
+    auto field = [&](int v) -> uint32_t {
+      switch (f) {
+        case 0: return static_cast<uint32_t>(padj(v)) - lo;
+        case 1: return static_cast<uint32_t>(akey(v)) - lo;
+        case 2: return hi - static_cast<uint32_t>(el[v]);
+        default: return hi - static_cast<uint32_t>(ac[v]);
+      }
+    };
+    for (int shift = 0; shift < bits; shift += kRadixBits) {
+      const int w = min(kRadixBits, bits - shift);
+      const uint32_t mask = (1u << w) - 1u;
+      radix_pass(src, dst, S, 1 << w,
+                 [&](int v) { return static_cast<int>((field(v) >> shift) &
+                                                      mask); },
+                 sh);
+      int32_t* t = src;
+      src = dst;
+      dst = t;
+    }
+  }
+  const int32_t* ord = src;
+
+  // ---- 1. thread the tree: P2 = first_child, P3 = next_sibling ----
+  if (SMEM) cp_async_wait<0>();          // visible, staged during the sort
+  int32_t* fc = P2;
+  int32_t* ns = P3;
+  for (int i = tid; i < S; i += kWideBlock) fc[i] = -1;
+  __syncthreads();
+  for (int s = tid; s < S; s += kWideBlock) {
+    const int o = ord[s];
+    const int p = padj(o);
+    const bool start = s == 0 || padj(ord[s - 1]) != p;
+    if (start && p >= 0 && p < S) fc[p] = o;
+    int nx = -1;
+    if (o != 0 && s + 1 < S) {   // head and padding share a sort bucket
+      const int o2 = ord[s + 1];
+      if (padj(o2) == p) nx = o2;
+    }
+    ns[o] = nx;
+  }
+  __syncthreads();
+
+  // ---- 2. climb to the nearest ancestor-or-self with a sibling, until
+  // no pointer moves (a fixed point stays one) or `rounds` rounds ----
+  int32_t* ca = dst;                      // the free index plane
+  int32_t* cb = src;                      // the order, read no more
+  for (int i = tid; i < S; i += kWideBlock) {
+    // under the extent vote an invalid node is nobody's ancestor: it
+    // stays put (its successor is -1 whatever it climbs to)
+    ca[i] = (ns[i] >= 0 || i == 0 || (ext && !vl[i]))
+                ? i : min(max(par[i], 0), n - 1);
+  }
+  __syncthreads();
+  for (int r = 0; r < rounds; ++r) {
+    int moved = 0;
+    for (int i = tid; i < S; i += kWideBlock) {
+      const int c = ca[i];
+      const int c2 = ca[c];
+      cb[i] = c2;
+      moved |= c2 != c;
+    }
+    moved = __syncthreads_or(moved);
+    int32_t* t = ca;
+    ca = cb;
+    cb = t;
+    if (!moved) break;
+  }
+  // successor chain into the free climb plane: nxt = succ, or S the
+  // terminator (the plain version's n)
+  int32_t* xa = cb;
+  for (int i = tid; i < S; i += kWideBlock) {
+    const int f = fc[i];
+    int succ = f >= 0 ? f : ns[ca[i]];
+    if (!vl[i]) succ = -1;
+    xa[i] = succ >= 0 ? succ : S;
+  }
+  if (tid == 0) xa[S] = S;
+  __syncthreads();
+
+  // ---- 3. list-rank the chain, until nothing changes or `rounds`
+  // rounds: dist in P2/P3, nxt in the climb pair ----
+  int32_t* da = fc;
+  int32_t* db = ns;
+  int32_t* xb = ca;
+  for (int i = tid; i <= S; i += kWideBlock) da[i] = i < S ? 1 : 0;
+  if (tid == 0) {
+    db[S] = 0;
+    xb[S] = S;
+  }
+  __syncthreads();
+  for (int r = 0; r < rounds; ++r) {
+    int moved = 0;
+    for (int i = tid; i < S; i += kWideBlock) {
+      const int j = xa[i];
+      const int dj = da[j];
+      const int xj = xa[j];
+      db[i] = static_cast<int>(static_cast<uint32_t>(da[i]) +
+                               static_cast<uint32_t>(dj));
+      xb[i] = xj;
+      moved |= (dj != 0) | (xj != j);
+    }
+    moved = __syncthreads_or(moved);
+    int32_t* t = da;
+    da = db;
+    db = t;
+    t = xa;
+    xa = xb;
+    xb = t;
+    if (!moved) break;
+  }
+  const uint32_t d0 = static_cast<uint32_t>(da[0]);
+  int32_t* tp = db;                       // free: the last round's source
+  for (int i = tid; i < S; i += kWideBlock) {
+    const int t = static_cast<int>(d0 - static_cast<uint32_t>(da[i]));
+    tp[i] = t;
+    tree_pos[off + i] = t;
+  }
+  for (int i = S + tid; i < n; i += kWideBlock) {   // invalid: dist 1
+    tree_pos[off + i] = static_cast<int>(d0 - 1u);
+  }
+  if (delta) return;                      // tree_pos is the delta output
+
+  // ---- 4. node_at_pos, visibility scan, vis_index, length ----
+  int32_t* nap = xb;                      // free
+  for (int p = tid; p <= S; p += kWideBlock) nap[p] = p == 0 ? 0 : n - 1;
+  __syncthreads();
+  for (int i = tid; i < S; i += kWideBlock) {
+    const int t = tp[i];
+    if (vl[i] && t > 0 && t <= S) nap[t] = i;   // slot S is the sink
+  }
+  __syncthreads();
+  // position 0 holds the head: its tree_pos is 0, so it is off the chain
+  int32_t* vo = da;                       // every thread has read d0
+  for (int p = tid; p < S; p += kWideBlock) {
+    const int j = nap[p];
+    node_at_pos[off + p] = j;
+    // the fill n - 1 names a padding node (invalid) when S < n
+    vo[p] = j < S ? (vl[j] && tp[j] > 0 && vb[j]) : 0;
+  }
+  __syncthreads();
+  int carry = 0;
+  for (int b = 0; b < S; b += kWideBlock) {
+    const int p = b + tid;
+    const int x = p < S ? vo[p] : 0;
+    int y, total;
+    BlockScan(sh.scan).ExclusiveSum(x, y, total);
+    if (p < S) vo[p] = y + carry;
+    carry += total;
+    __syncthreads();
+  }
+  int mine = 0;
+  for (int i = tid; i < S; i += kWideBlock) {
+    const int t = tp[i];
+    const bool shown = vb[i] && vl[i] && t > 0;
+    vis_index[off + i] = shown ? vo[min(max(t, 0), n - 1)] : -1;
+    mine += shown;
+  }
+  mine = __reduce_add_sync(kFull, mine);
+  if (lane == 0) atomicAdd(&sh.shown, mine);
+  __syncthreads();
+  if (tid == 0) length[blockIdx.x] = sh.shown;
+}
+
+template <bool SMEM>
+int launch_wide(const int32_t* parent, const int32_t* elem,
+                const int32_t* actor, const int32_t* anchor,
+                const uint8_t* visible, const uint8_t* valid,
+                int32_t* tree_pos, int32_t* vis_index, int32_t* node_at_pos,
+                int32_t* length, int32_t* scratch, int K, int m, int rounds,
+                cudaStream_t stream) {
+  const size_t dyn = SMEM ? wide_smem_bytes(m, anchor != nullptr) : 0;
+  const cudaError_t e = opt_in_smem(rga_wide_kernel<SMEM>, dyn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rga_wide_kernel<SMEM><<<K, kWideBlock, dyn, stream>>>(
+      parent, elem, actor, anchor, visible, valid, tree_pos, vis_index,
+      node_at_pos, length, scratch, m, rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 // ---- grid variant: one row over every SM --------------------------------
 
 // Steps 1-4 over all K rows at once, each a grid-wide phase of ONE
@@ -1297,27 +1722,47 @@ __global__ void __launch_bounds__(kGridBlock) grid_barrier_kernel(int syncs) {
 
 }  // namespace
 
-// Whether a launch at width m keeps its planes in shared memory; when it
-// does not, the caller passes a global scratch of K*4*(m+1) int32.
-extern "C" int rga_order_uses_smem(int m) {
-  return 4 * plane_words(m) * 4 <= static_cast<size_t>(kSmemLimit);
+// Whether the wide variant keeps a row of width m in shared memory
+// (delta != 0: the delta mode's planes); when it does not, the caller
+// passes a global scratch of rga_wide_scratch_words(m) int32 a row.
+extern "C" int rga_wide_uses_smem(int m, int delta) {
+  return wide_smem_bytes(m, delta != 0) <= kWideDynLimit;
 }
 
-// C entry point (bound with ctypes). order/parent_adj/parent are int32
-// [K, m], visible/valid uint8 (bool) [K, m]; outputs tree_pos, vis_index,
-// node_at_pos int32 [K, m] and length int32 [K]. Returns the CUDA error
-// of the launch (0 on success).
-extern "C" int rga_order_launch(const void* order, const void* parent_adj,
-                                const void* parent, const void* visible,
-                                const void* valid, void* tree_pos,
-                                void* vis_index, void* node_at_pos,
-                                void* length, void* scratch, int K, int m,
-                                int rounds, void* stream) {
+// Words of the wide variant's global scratch a row.
+extern "C" long long rga_wide_scratch_words(int m) {
+  return 4LL * static_cast<long long>(wide_words(m));
+}
+
+// C entry point of the wide variant (bound with ctypes): one block a row
+// from the raw planes parent/elem/actor int32 [K, m] and visible/valid
+// uint8 (bool) [K, m], the child sort inside; outputs tree_pos,
+// vis_index, node_at_pos int32 [K, m] and length int32 [K]. With anchor
+// (int32 [K, m]) the delta mode: visible, vis_index, node_at_pos and
+// length may be null and only tree_pos is written. global != 0 runs on a
+// scratch of K * rga_wide_scratch_words(m) int32, else in shared memory
+// (rga_wide_uses_smem). Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int rga_wide_launch(int global, const void* parent,
+                               const void* elem, const void* actor,
+                               const void* anchor, const void* visible,
+                               const void* valid, void* tree_pos,
+                               void* vis_index, void* node_at_pos,
+                               void* length, void* scratch, int K, int m,
+                               int rounds, void* stream) {
   if (K <= 0) return 0;
-  auto args = [&](auto launcher) {
-    return launcher(static_cast<const int32_t*>(order),
-                    static_cast<const int32_t*>(parent_adj),
-                    static_cast<const int32_t*>(parent),
+  const bool delta = anchor != nullptr;
+  if (m < 1 || rounds < 1 || (global && scratch == nullptr) ||
+      (!global && !rga_wide_uses_smem(m, delta)) ||
+      (!delta && (visible == nullptr || vis_index == nullptr ||
+                  node_at_pos == nullptr || length == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto go = [&](auto launcher) {
+    return launcher(static_cast<const int32_t*>(parent),
+                    static_cast<const int32_t*>(elem),
+                    static_cast<const int32_t*>(actor),
+                    static_cast<const int32_t*>(anchor),
                     static_cast<const uint8_t*>(visible),
                     static_cast<const uint8_t*>(valid),
                     static_cast<int32_t*>(tree_pos),
@@ -1327,11 +1772,7 @@ extern "C" int rga_order_launch(const void* order, const void* parent_adj,
                     static_cast<int32_t*>(scratch), K, m, rounds,
                     static_cast<cudaStream_t>(stream));
   };
-  if (m <= 64) return args(launch<64>);
-  if (m <= 128) return args(launch<128>);
-  if (m <= 256) return args(launch<256>);
-  if (m <= 4096) return args(launch<512>);
-  return args(launch<1024>);
+  return global ? go(launch_wide<false>) : go(launch_wide<true>);
 }
 
 // Words of the grid variant's scratch at (K, m): five planes of K*(m+1)
@@ -1341,9 +1782,10 @@ extern "C" long long rga_grid_scratch_words(int K, int m) {
          grid_chunk_words(K);
 }
 
-// C entry point of the grid variant (bound with ctypes): the arguments
-// of rga_order_launch, with a scratch of rga_grid_scratch_words(K, m)
-// int32. One cooperative launch over every resident CTA; returns the
+// C entry point of the grid variant (bound with ctypes), after a PyTorch
+// child sort: order/parent_adj/parent int32 [K, m], visible/valid uint8
+// (bool) [K, m], the outputs of rga_wide_launch, and a scratch of
+// rga_grid_scratch_words(K, m) int32. One cooperative launch over every resident CTA; returns the
 // CUDA error of the launch (0 on success; a card or stream that refuses
 // a cooperative launch returns its error, never another variant).
 extern "C" int rga_grid_launch(const void* order, const void* parent_adj,
@@ -1398,7 +1840,7 @@ extern "C" int grid_barrier_probe(int syncs, int coop, int ctas,
 
 // C entry point of the narrow variant (bound with ctypes): the raw planes
 // parent/elem/actor int32 [K, m] and visible/valid uint8 (bool) [K, m],
-// m <= 512; the same outputs as rga_order_launch. Returns the CUDA error
+// m <= 512; the outputs of rga_wide_launch. Returns the CUDA error
 // of the launch (0 on success).
 extern "C" int rga_narrow_launch(const void* parent, const void* elem,
                                  const void* actor, const void* visible,

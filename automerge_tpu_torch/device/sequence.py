@@ -27,10 +27,10 @@ and every output is int32. On CUDA tensors it launches a hand-written
 RGA kernel (:mod:`.cuda_sequence`, ``csrc/rga_order.cu``, the port of
 ``pallas_sequence.py``): rows up to ``cuda_sequence.M_NARROW`` nodes
 take the narrow kernel, which does all four steps, the sort included,
-from the raw planes; wider rows take the PyTorch sort and then the wide
-kernel for steps 2-4 — one block per row for a batch that fills the
-card, its grid variant over every SM for a few long rows
-(``cuda_sequence.variant``).
+from the raw planes; wider rows the wide kernel, one block per row, the
+sort included too (a radix sort in shared memory) — but a few long rows
+(``cuda_sequence.variant``'s ``'wide-grid'``), which take the PyTorch
+sort and then the grid kernel for steps 2-4 over every SM.
 
 Node 0 is the virtual ``'_head'`` element; padding slots carry
 ``valid=False`` and sort to the end.
@@ -40,8 +40,9 @@ The delta orderer behind the incremental index update
 themselves: the same steps 1-3 with the anchor (the old tree position of
 a delta root's real parent) as one more sort key. Its plain version is
 :func:`_rga_delta_order_plain`; on CUDA tensors it launches the RGA
-kernel's delta mode (narrow planes) or the PyTorch sort and the wide
-kernel.
+kernel's delta mode: narrow or subwarp planes up to
+``cuda_sequence.M_NARROW`` nodes, the wide kernel past it (or, for a few
+long rows, the PyTorch sort and the grid kernel).
 """
 
 import torch
@@ -217,8 +218,10 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     CUDA planes always go through a kernel (inputs cast to its
     int32/bool, contiguous; a build or launch failure raises): the
     narrow one straight from these planes up to
-    ``cuda_sequence.M_NARROW`` nodes, else the PyTorch child sort and
-    the wide one (its variant by ``cuda_sequence.variant(K, m)``). CPU
+    ``cuda_sequence.M_NARROW`` nodes, past it the variant
+    ``cuda_sequence.variant(K, m)`` names — the wide kernel, also
+    straight from these planes, or for ``'wide-grid'`` the PyTorch child
+    sort and the grid kernel. CPU
     planes take `_rga_order_plain`, and so do numpy arrays or any
     other array (:func:`~automerge_tpu_torch.config.as_tensor` puts
     them on the host)."""
@@ -230,10 +233,11 @@ def _rga_order_batched(parent, elem, actor, visible, valid):
     rounds = _ceil_log2(m) + 1
     flags = (visible.to(torch.bool).contiguous(),
              valid.to(torch.bool).contiguous())
+    raw = [t.to(_I32).contiguous() for t in (parent, elem, actor)]
     if m <= cuda_sequence.M_NARROW:
-        return cuda_sequence.rga_order_cuda(
-            *(t.to(_I32).contiguous() for t in (parent, elem, actor)),
-            *flags, rounds=rounds)
+        return cuda_sequence.rga_order_cuda(*raw, *flags, rounds=rounds)
+    if cuda_sequence.variant(*parent.shape) != 'wide-grid':
+        return cuda_sequence.rga_wide_cuda(*raw, *flags, rounds=rounds)
     order, parent_adj, parent = _child_sort(parent, elem, actor, valid)
     return cuda_sequence.order_from_sorted_cuda(
         *(t.to(_I32).contiguous() for t in (order, parent_adj, parent)),
@@ -268,11 +272,13 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
     the JAX `_rga_delta_order_batched` on every valid row.
 
     CUDA planes always go through a kernel (a build or launch failure
-    raises): the RGA kernel's delta mode up to ``cuda_sequence.M_NARROW``
-    nodes (its subwarp variant up to ``cuda_sequence.M_SUBWARP``, else
-    the narrow one), else the PyTorch child sort with the anchor key and
-    the wide kernel (the variant by ``cuda_sequence.delta_variant(K,
-    m)``). CPU planes and other arrays take `_rga_delta_order_plain`."""
+    raises): the RGA kernel's delta mode, in the variant
+    ``cuda_sequence.delta_variant(K, m)`` names — subwarp up to
+    ``cuda_sequence.M_SUBWARP`` nodes, narrow up to
+    ``cuda_sequence.M_NARROW``, past it the wide kernel with the anchor
+    plane, or for ``'wide-grid'`` the PyTorch child sort with the anchor
+    key and the grid kernel. CPU planes and other arrays take
+    `_rga_delta_order_plain`."""
     parent, anchor, elem, actor, valid = map(
         as_tensor, (parent, anchor, elem, actor, valid))
     if parent.device.type != 'cuda':
@@ -280,11 +286,17 @@ def _rga_delta_order_batched(parent, anchor, elem, actor, valid):
     m = parent.shape[1]
     rounds = _ceil_log2(m) + 1
     valid = valid.to(torch.bool).contiguous()
-    if m <= cuda_sequence.M_NARROW:
+    v = cuda_sequence.delta_variant(*parent.shape)
+    if v in ('narrow', 'subwarp'):
         return cuda_sequence.rga_delta_cuda(
             *(t.to(_I32).contiguous() for t in (parent, anchor, elem,
                                                  actor)),
             valid, rounds=rounds)
+    if v != 'wide-grid':
+        return cuda_sequence.rga_wide_cuda(
+            *(t.to(_I32).contiguous() for t in (parent, elem, actor)),
+            None, valid, rounds=rounds,
+            anchor=anchor.to(_I32).contiguous())
     order, parent_adj, parent = _child_sort(parent, elem, actor, valid,
                                             anchor)
     return cuda_sequence.order_from_sorted_cuda(

@@ -18,13 +18,15 @@ exits non-zero without a result line):
    RGA order on seeded random, prepend, chain and wide-key trees at (K,
    m) up to (12288, 64), both sides of ``M_NARROW``, (64, 4096), single
    rows of 513, 3,071, 12,800, 49,152 and 196,608 nodes and 2 and 5
-   rows of 40,000 — through the dispatch (the narrow kernel, or the sort
-   and then the grid variant for a few wide rows, one block per row for
-   many) and each variant directly (narrow and wide up to m = 512, wide
-   and grid above); the RGA kernel's delta mode on seeded delta forests
+   rows of 40,000 — through the dispatch (the narrow kernel; past it
+   the wide kernel, its sort inside, one block per row, or the sort and
+   then the grid variant for a few long rows) and each variant directly
+   (the wide kernel in shared and in global memory, the narrow kernel
+   up to m = 512 and the grid one above, after a PyTorch sort); the RGA kernel's delta mode on seeded delta forests
    (anchors up to 2^22 - 1, elems past 2^15) at every width up to 33
-   and at 129 and 513 (the last through the sort with the anchor key +
-   a wide variant), its narrow and subwarp variants forced; the edit
+   and at 129, 513, 1,025 and 8,600 (the last three through the wide
+   kernel with the anchor plane), its narrow, subwarp and wide variants
+   forced; the edit
    stream's wide format at a long text's width (m
    past 32,768) and at m <= 512, each forced onto every variant, and
    its grid variant at 1 and 3 rows of m in {513, 32,768, 65,536,
@@ -110,6 +112,17 @@ exits non-zero without a result line):
    the count per JAX module must be :data:`CONFORMANCE_CASES`, and
    neither JAX nor the JAX package may be loaded; the cases passed per
    module, the phase's seconds and its launches per key;
+   4i. a mixed tick, many small structured documents beside a few
+   page-length texts (a collab server's tick of lists and notes): a
+   2,048-document ``GeneralDocSet`` on the card, 1,920 of config 5's
+   mixed lists (22 list ops) and 128 texts of 2,000-6,000 characters by
+   three writers; tick 1 rebuilds every dirty object in one job table
+   padded to m = 6,144, so the wide RGA kernel orders every row; tick 2
+   pastes a paragraph of 600-1,000 characters into each text (the delta
+   orderer past ``M_NARROW``: the wide kernel's delta mode); no PyTorch
+   child sort may run on the card; views, digests and both ticks'
+   diffs equal to a CPU fleet's (the texts and a seeded 256 lists); the
+   ticks by span, and device busy under ``torch.profiler`` over tick 1;
 5. the per-doc device backend: ``DeviceDocSet(device='cuda')
    .apply_changes_batch`` on a 10,240-document map-only fleet (8
    concurrent actors x 16 set/del ops over 32 keys per document,
@@ -299,6 +312,99 @@ def gen_tick2(n_docs, list_ops, doc0=0, seed=0, actor='w2'):
         per_doc.append([{'actor': f'{actor}-{d}', 'seq': 1,
                          'deps': {f'w0-{d}': 1}, 'ops': ops}])
     return per_doc
+
+
+def gen_text_docs(n_docs, doc0=0, seed=14, chars=(2000, 6000),
+                  del_share=0.07):
+    """Page-length texts, three writers each (the pattern of
+    :func:`text_writer_changes`, built as raw changes on the host): per
+    document a count of inserted characters drawn uniformly from
+    ``chars``; writer ``t0-<d>`` makes the ``Text`` and types half of them
+    as one paragraph (a jump to an earlier character now and then), then
+    ``t1-<d>`` and ``t2-<d>``, concurrent with each other and both after
+    ``t0``, type the rest in runs of 20-80 at the same few anchors (so
+    that sibling groups of two occur there) and delete ``del_share`` of
+    the characters between them. Returns (per-document changes, per
+    document (actors, the elem ids still visible, the highest elem, the
+    expected text length))."""
+    per_doc, meta = [], []
+    for d in range(doc0, doc0 + n_docs):
+        rng = np.random.default_rng([seed, d])
+        obj = f'00000000-0000-4000-9000-{d:012x}'
+        a = [f't{w}-{d}' for w in range(3)]
+        total = int(rng.integers(chars[0], chars[1] + 1))
+        n0 = total // 2
+        n1 = (total - n0) // 2
+        letters = rng.integers(97, 123, total)
+        ops0 = [{'action': 'makeText', 'obj': obj},
+                {'action': 'link', 'obj': ROOT_ID, 'key': 'text',
+                 'value': obj}]
+        prev, ids0 = '_head', []
+        for i in range(1, n0 + 1):
+            if ids0 and rng.random() < 0.02:
+                prev = ids0[int(rng.integers(len(ids0)))]
+            ops0.append({'action': 'ins', 'obj': obj, 'key': prev,
+                         'elem': i})
+            prev = f'{a[0]}:{i}'
+            ops0.append({'action': 'set', 'obj': obj, 'key': prev,
+                         'value': chr(letters[i - 1])})
+            ids0.append(prev)
+        anchors = [ids0[int(j)] for j in rng.integers(0, n0, 6)]
+        dead = rng.choice(n0, int(del_share * total), replace=False)
+        changes = [{'actor': a[0], 'seq': 1, 'deps': {}, 'ops': ops0}]
+        ids_w = []
+        top = n0
+        for w, count in ((1, n1), (2, total - n0 - n1)):
+            ops, e, k = [], n0, 0
+            while k < count:
+                run = min(int(rng.integers(20, 81)), count - k)
+                prev = anchors[int(rng.integers(len(anchors)))]
+                for _ in range(run):
+                    e += 1
+                    ops.append({'action': 'ins', 'obj': obj, 'key': prev,
+                                'elem': e})
+                    prev = f'{a[w]}:{e}'
+                    ops.append({'action': 'set', 'obj': obj, 'key': prev,
+                                'value': chr(letters[n0 + k])})
+                    ids_w.append(prev)
+                    k += 1
+            for j in dead[w - 1::2]:
+                ops.append({'action': 'del', 'obj': obj, 'key': ids0[j]})
+            changes.append({'actor': a[w], 'seq': 1, 'deps': {a[0]: 1},
+                            'ops': ops})
+            top = max(top, e)
+        gone = set(int(j) for j in dead)
+        alive = [x for j, x in enumerate(ids0) if j not in gone] + ids_w
+        per_doc.append(changes)
+        meta.append((a, alive, top, total - len(gone)))
+    return per_doc, meta
+
+
+def gen_paste_tick(meta, doc0=0, seed=15, chars=(600, 1000)):
+    """One more tick of :func:`gen_text_docs`' documents: a fourth actor
+    ``t3-<d>``, after the three writers, pastes a paragraph of a length
+    drawn uniformly from ``chars`` after a seeded visible character, its
+    elems above every elem so far. Returns (per-document changes, the
+    expected text lengths)."""
+    per_doc, lengths = [], []
+    for j, (a, alive, top, n) in enumerate(meta):
+        d = doc0 + j
+        rng = np.random.default_rng([seed, d])
+        obj = f'00000000-0000-4000-9000-{d:012x}'
+        actor = f't3-{d}'
+        size = int(rng.integers(chars[0], chars[1] + 1))
+        prev = alive[int(rng.integers(len(alive)))]
+        ops = []
+        for e in range(top + 1, top + size + 1):
+            ops.append({'action': 'ins', 'obj': obj, 'key': prev,
+                        'elem': e})
+            prev = f'{actor}:{e}'
+            ops.append({'action': 'set', 'obj': obj, 'key': prev,
+                        'value': chr(97 + e % 26)})
+        per_doc.append([{'actor': actor, 'seq': 1,
+                         'deps': {x: 1 for x in a}, 'ops': ops}])
+        lengths.append(n + size)
+    return per_doc, lengths
 
 
 def random_planes(rng, K, m):
@@ -736,7 +842,8 @@ def _kernel_share(prof, what, names):
 
 
 # the hand kernels' function names, as the profiler lists them
-_RGA_KERNELS = ('rga_order_kernel', 'rga_narrow_kernel', 'rga_grid_kernel')
+_RGA_KERNELS = ('rga_order_kernel', 'rga_narrow_kernel', 'rga_grid_kernel',
+                'rga_wide_kernel', 'rga_subwarp_delta_kernel')
 _ES_KERNELS = ('es_warp_kernel', 'es_block_kernel', 'es_grid_kernel')
 
 
@@ -1654,8 +1761,8 @@ def _capturing(into):
     def delta(*a):
         if a[0].is_cuda:
             v = cuda_sequence.delta_variant(*a[0].shape)
-            put(('rga_order', 'delta' if v in ('narrow', 'subwarp')
-                 else 'order', v), 'delta', a)
+            put(('rga_order', 'order' if v == 'wide-grid' else 'delta', v),
+                'delta', a)
         return real['delta'](*a)
 
     def fm(*a, **kw):
@@ -1705,12 +1812,13 @@ def _check_rga_kernel(dev):
     random, prepend, chain and wide-key trees (the last on the narrow
     kernel's 64-bit and 128-bit key paths), through the dispatch (narrow
     up to ``M_NARROW``; above it the grid variant for a few rows, one
-    block per row for many) and each variant directly: up to
-    ``M_NARROW`` the narrow and wide ones, above it the wide (on global
-    memory past its shared-memory cap) and grid ones. The shapes add
-    single long rows (the long text's 49,152, config 4's 196,608) and a
-    few rows at 40,000. The C side's shared-memory fit of the wide
-    variant and its grid launch limits must agree with the Python
+    block per row for many) and each variant directly: the wide kernel
+    (its sort inside) in shared memory up to its cap and on global
+    memory at every width; above ``M_NARROW`` the grid one after a
+    PyTorch child sort, up to it the narrow one. The shapes add single long rows
+    (the long text's 49,152, config 4's 196,608) and a few rows at
+    40,000. The C side's shared-memory fit of the wide variant (both
+    modes) and its grid launch limits must agree with the Python
     dispatch's."""
     import torch
     from automerge_tpu_torch.device import cuda_build, cuda_grid
@@ -1725,11 +1833,13 @@ def _check_rga_kernel(dev):
     shapes = ((1, 2), (6, 16), (37, 200), (12288, 64), (300, n),
               (300, n + 1), (1, 513), (1, 3071), (64, 4096), (1, 12800),
               (2, 40000), (5, 40000), (1, 49152), (1, 196608))
-    for K, m in shapes:
-        if cuda_sequence.uses_global_scratch(m) == \
-                cuda_sequence.wide_fits_smem(m):
-            raise AssertionError(f'the wide RGA variant\'s shared-memory '
-                                 f'fit at m={m}: C and Python disagree')
+    for m in (*(m for _, m in shapes), 8599, 8600, 9771, 9772):
+        for delta in (False, True):
+            if cuda_sequence.uses_global_scratch(m, delta) == \
+                    cuda_sequence.wide_fits_smem(m, delta):
+                raise AssertionError(f'the wide RGA variant\'s shared-'
+                                     f'memory fit at m={m} (delta '
+                                     f'{delta}): C and Python disagree')
     for tree, gen in (*TREES.items(), ('wide-key', wide_key_trees)):
         rng = np.random.default_rng(4321)
         for K, m in shapes:
@@ -1741,19 +1851,20 @@ def _check_rga_kernel(dev):
                 raise AssertionError(f'rga {tree} at {(K, m)}: ran {ran}, '
                                      f'not {cuda_sequence.variant(K, m)}')
             rounds = sequence._ceil_log2(m) + 1
-            order, padj, parent = sequence._child_sort(
-                planes[0], planes[1], planes[2], planes[4])
-            srt = [t.to(torch.int32) for t in (order, padj, parent)]
+            raw = [t.to(torch.int32) for t in planes[:3]]
             if m <= cuda_sequence.M_NARROW:
                 got['narrow'] = cuda_sequence.rga_order_cuda(
-                    *(t.to(torch.int32) for t in planes[:3]), planes[3],
-                    planes[4], rounds=rounds)
-                forced = ('wide',)
+                    *raw, planes[3], planes[4], rounds=rounds)
             else:
-                forced = ('wide', 'wide-grid')
-            for v in forced:
-                got[v] = cuda_sequence.order_from_sorted_cuda(
-                    *srt, planes[3], planes[4], rounds=rounds, force=v)
+                srt = [t.to(torch.int32) for t in sequence._child_sort(
+                    planes[0], planes[1], planes[2], planes[4])]
+                got['sort+wide-grid'] = \
+                    cuda_sequence.order_from_sorted_cuda(
+                        *srt, planes[3], planes[4], rounds=rounds)
+            for v in ('wide', 'wide-global'):
+                if v == 'wide-global' or cuda_sequence.wide_fits_smem(m):
+                    got[v] = cuda_sequence.rga_wide_cuda(
+                        *raw, planes[3], planes[4], rounds=rounds, force=v)
             torch.cuda.synchronize()
             for how, out in got.items():
                 if _bits_err(out, want, f'rga {(K, m)}', mask=planes[4]):
@@ -1768,15 +1879,17 @@ def _check_delta_kernel(dev):
     """Phase 3d: the RGA kernel's delta mode against the delta orderer's
     plain version (tree_pos on valid rows) on seeded delta forests —
     anchors up to 2^22 - 1, elems past 2^15 — at every width up to 33
-    and at 129 and 513 through the dispatch (the subwarp variant up to
-    ``M_SUBWARP``, the narrow one above, the sort with the anchor key +
-    wide kernel for 513) and each variant directly up to its limit
-    (``M_NARROW``, ``M_SUBWARP``)."""
+    and at 129, 513, 1,025 and 8,600 through the dispatch (the subwarp
+    variant up to ``M_SUBWARP``, the narrow one above, the wide kernel
+    with the anchor plane past ``M_NARROW``, on global memory past its
+    cap) and each variant directly up to its limit (``M_NARROW``,
+    ``M_SUBWARP``; the wide kernel in shared memory up to its cap, on
+    global memory at every width)."""
     import torch
     from automerge_tpu_torch.device import cuda_sequence, sequence
     rng = np.random.default_rng(2468)
     for K, m in ((1024, 9), (12288, 9), *((300, w) for w in range(1, 34)),
-                 (128, 129), (16, 513)):
+                 (128, 129), (16, 513), (128, 1025), (3, 8600)):
         planes = [torch.as_tensor(p).to(dev)
                   for p in delta_forests(rng, K, m)]
         valid = planes[4]
@@ -1791,6 +1904,11 @@ def _check_delta_kernel(dev):
                      else cuda_sequence.M_NARROW):
                 got[v] = cuda_sequence.rga_delta_cuda(
                     *planes[:4], valid, rounds=rounds, force=v)
+        for v in ('wide', 'wide-global'):
+            if v == 'wide-global' or cuda_sequence.wide_fits_smem(m, True):
+                got[v] = cuda_sequence.rga_wide_cuda(
+                    planes[0], planes[2], planes[3], None, valid,
+                    rounds=rounds, anchor=planes[1], force=v)
         torch.cuda.synchronize()
         for how, out in got.items():
             if out.dtype != want.dtype or \
@@ -2079,6 +2197,209 @@ def _long_text_path(card, inputs):
     return counts, applies, cpu_diffs
 
 
+# phase 4i: config 5's mixed lists beside page-length texts
+MIXED_SMALL, MIXED_TEXTS, MIXED_LIST_OPS = 1920, 128, 22
+
+
+def _timed_tick(ds, batch, read, sync):
+    """One tick through ``apply_changes_batch``, then the diffs of the
+    ``read`` doc ids from its patch (the first read runs the patch read
+    for the whole tick). Returns (diffs, apply ms, patch-read ms,
+    spans)."""
+    from automerge_tpu_torch.utils.metrics import metrics
+    spans = []
+
+    def on_event(ev):
+        if ev.get('event') == 'span':
+            spans.append((ev['name'], ev['dur_ms']))
+
+    metrics.subscribe(on_event)
+    try:
+        t0 = time.perf_counter()
+        ds.apply_changes_batch(batch)
+        sync()
+        t1 = time.perf_counter()
+        patch = ds.last_patch
+        diffs = {i: patch.diffs(ds.id_of[i]) for i in read}
+        sync()
+        t2 = time.perf_counter()
+    finally:
+        metrics.unsubscribe(on_event)
+    return diffs, (t1 - t0) * 1e3, (t2 - t1) * 1e3, spans
+
+
+def _mixed_tick_path(card, inputs):
+    """Phase 4i: one collab tick of many small structured documents
+    beside a few page-length texts. A ``GeneralDocSet`` of 2,048
+    documents on the card: 1,920 of config 5's mixed lists
+    (:func:`gen_mixed_docs`, 22 list ops) and 128 texts of 2,000-6,000
+    characters by three writers (:func:`gen_text_docs`). Tick 1 rebuilds
+    every dirty list and text object in one job table padded to its
+    widest row (m = 6,144: the wide RGA kernel on every row); tick 2
+    pastes a paragraph of 600-1,000 characters into each text
+    (:func:`gen_paste_tick`), so the delta orderer sees rows past
+    ``M_NARROW``. Checks: the launch keys (the wide kernel on tick 1 at m
+    = 6,144 with every dirty object's row; no PyTorch child sort on the
+    card), views and per-document digests equal to a CPU
+    ``GeneralDocSet`` fed the same changes (all 128 texts and a seeded
+    256 of the lists, in a fleet of their own), each text's length and
+    each list's items. Times: the ticks by span, the patch reads, and a
+    ``torch.profiler`` window over tick 1 on a second card fleet (device
+    busy share, the RGA kernel's device time). The counters are set to
+    0 here; returns the launches of the two ticks by launch key; the
+    kernel inputs land in ``inputs``."""
+    import torch
+    from automerge_tpu_torch.device import cuda_merge, cuda_sequence
+    from automerge_tpu_torch.device import cuda_view, sequence
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    from automerge_tpu_torch.utils.metrics import metrics
+    n_docs = MIXED_SMALL + MIXED_TEXTS
+    t0 = time.perf_counter()
+    tick1 = gen_mixed_docs(MIXED_SMALL, MIXED_LIST_OPS)
+    texts, meta = gen_text_docs(MIXED_TEXTS, doc0=MIXED_SMALL)
+    tick1 += texts
+    paste, lengths = gen_paste_tick(meta, doc0=MIXED_SMALL)
+    ids = [f'mixed{d}' for d in range(n_docs)]
+    text_ids = ids[MIXED_SMALL:]
+    batches = [{ids[d]: tick1[d] for d in range(n_docs)},
+               dict(zip(text_ids, paste))]
+    n_ops = [sum(len(c['ops']) for doc in b.values() for c in doc)
+             for b in batches]
+    chars = [m[3] for m in meta]
+    print(f'mixed tick: {MIXED_SMALL} lists ({MIXED_LIST_OPS} list ops) + '
+          f'{MIXED_TEXTS} texts of {min(chars)}-{max(chars)} chars (three '
+          f'writers); tick 1 {n_ops[0]} ops, tick 2 {n_ops[1]} ops (a '
+          f'paste of 600-1,000 chars a text); generated in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    sub = sorted(np.random.default_rng(8).choice(
+        MIXED_SMALL, 256, replace=False).tolist()) + \
+        list(range(MIXED_SMALL, n_docs))
+    sub_ids = [ids[d] for d in sub]
+
+    sorts = []
+    real_sort = sequence._child_sort
+
+    def counted_sort(parent, *a, **kw):
+        if parent.is_cuda:
+            sorts.append(tuple(parent.shape))
+        return real_sort(parent, *a, **kw)
+
+    gds = GeneralDocSet(n_docs, device='cuda')
+    mine, added, diffs_gpu = {}, [], []
+    _reset_counts(cuda_view, cuda_sequence, cuda_merge)
+    sequence._child_sort = counted_sort
+    try:
+        with _capturing(mine):
+            for k, batch in enumerate(batches):
+                before = _launch_counts()
+                idx0 = {n: metrics.counters.get(n, 0) for n in _IDX_KEYS}
+                diffs, t_apply, t_read, spans = _timed_tick(
+                    gds, batch, sub_ids if k == 0 else text_ids,
+                    torch.cuda.synchronize)
+                added.append(_added(_launch_counts(), before))
+                idx = {n: metrics.counters.get(n, 0) - idx0[n]
+                       for n in _IDX_KEYS}
+                diffs_gpu.append(diffs)
+                if k == 0:
+                    digests = {i: int(gds.digest_of_id(i))
+                               for i in sub_ids[:8] + text_ids[-8:]}
+                path = 'rebuild' if k == 0 else \
+                    'delta mode (incremental index)' \
+                    if idx['device_idx_incremental_applies'] else \
+                    'rebuild fallback'
+                print(f'mixed tick {k + 1} ({card}): {path}; apply '
+                      f'{t_apply:.1f} ms = dict encode '
+                      f'{_span_sum(spans, "admit.encode"):.1f} + admit '
+                      f'{_span_sum(spans, "device.admit"):.1f} + stage '
+                      f'{_span_sum(spans, "device.stage"):.1f} + dispatch '
+                      f'{_span_sum(spans, "device.dispatch"):.1f} + rest; '
+                      f'patch read {t_read:.1f} ms ({len(diffs)} docs); '
+                      f'launches {_keys(added[-1])}; index {idx}',
+                      flush=True)
+        t0 = time.perf_counter()
+        views = gds.materialize_all()
+        t_mat = (time.perf_counter() - t0) * 1e3
+    finally:
+        sequence._child_sort = real_sort
+    counts = _launch_counts()
+    for key, entries in mine.items():
+        inputs.setdefault(key, []).extend(entries)
+
+    wide = mine.get(('rga_order', 'order', 'wide'), [])
+    if not added[0].get(('rga_order', 'order', 'wide')) or not wide:
+        raise AssertionError(f'mixed tick 1 did not launch the wide RGA '
+                             f'kernel: {added[0]}')
+    K, m = wide[0][1][0].shape
+    rows = int(wide[0][1][4].to(torch.bool).any(dim=1).sum())
+    if m != 6144 or rows != n_docs:
+        raise AssertionError(f'mixed tick 1 handed the wide kernel K={K}, '
+                             f'm={m} with {rows} rows of nodes, not every '
+                             f'one of the {n_docs} dirty objects at 6,144')
+    ext = cuda_sequence.wide_extent(wide[0][1][0], wide[0][1][4])
+    if sorts:
+        raise AssertionError(f'the PyTorch child sort ran on the card in '
+                             f'the mixed tick: {sorts}')
+    delta = [a for key, e in mine.items() for kind, a in e
+             if kind == 'delta']
+    print(f'mixed tick ({card}): tick 1 handed the wide RGA kernel K={K} '
+          f'rows at m={m} ({rows} of them dirty objects, their extents '
+          f'{int(ext.min())}-{int(ext.max())} slots, mean '
+          f'{float(ext.float().mean()):.1f}); tick 2 the delta orderer '
+          f'{[tuple(a[0].shape) for a in delta]}; no PyTorch child sort '
+          f'on the card; materialize_all {t_mat:.1f} ms', flush=True)
+
+    bad = [i for j, i in enumerate(text_ids)
+           if len(views[i]['text']) != lengths[j]]
+    bad += [ids[d] for d in range(MIXED_SMALL)
+            if len(views[ids[d]]['items']) != MIXED_LIST_OPS
+            or views[ids[d]]['meta'] != d]
+    if bad:
+        raise AssertionError(f'mixed tick: unexpected views {bad[:3]}')
+    cds = GeneralDocSet(len(sub), device='cpu')
+    t0 = time.perf_counter()
+    diffs_cpu = [_timed_tick(cds, {i: b[i] for i in sub_ids if i in b},
+                             sub_ids if k == 0 else text_ids,
+                             lambda: None)[0]
+                 for k, b in enumerate(batches)]
+    views_cpu = cds.materialize_all()
+    t_cpu = time.perf_counter() - t0
+    for i in sub_ids:
+        if views_cpu[i] != views[i]:
+            raise AssertionError(f'mixed tick {i}: cuda view != cpu view')
+        if int(cds.digest_of_id(i)) != int(gds.digest_of_id(i)):
+            raise AssertionError(f'mixed tick {i}: cuda digest != cpu')
+    for k in range(2):
+        for i, dd in diffs_cpu[k].items():
+            if dd != diffs_gpu[k][i]:
+                raise AssertionError(f'mixed tick {k + 1} {i}: cuda diffs '
+                                     f'!= cpu diffs')
+    print(f'check: mixed tick views, digests and both ticks\' diffs == cpu '
+          f'for all {MIXED_TEXTS} texts and a seeded '
+          f'{len(sub) - MIXED_TEXTS} of the lists (own fleet, {t_cpu:.1f} s '
+          f'on the cpu); every text at its expected length, every list at '
+          f'{MIXED_LIST_OPS} items', flush=True)
+
+    # a torch.profiler window over tick 1 on a second card fleet
+    again = GeneralDocSet(n_docs, device='cuda')
+    t0 = time.perf_counter()
+    prof = _profiled(lambda: (again.apply_changes_batch(batches[0]),
+                              again.last_patch.diffs(0)))
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, k_ms = _kernel_share(prof, 'mixed tick 1', ('rga_wide_kernel',))
+    _, rows_p = _device_rows(prof, 'mixed tick 1')
+    print(f'profile (mixed tick 1 under torch.profiler, {card}): wall '
+          f'{wall:.1f} ms, device busy {busy:.3f} ms, idle share '
+          f'{1 - busy / wall:.4f}; rga_wide_kernel {k_ms:.4f} ms; '
+          f'largest: ' + '; '.join(f'{key[:60]} {ms:.3f} ms x{n}'
+                                   for key, ms, n in rows_p[:5]),
+          flush=True)
+    for i, dg in digests.items():
+        if int(again.digest_of_id(i)) != dg:
+            raise AssertionError(f'mixed tick: the profiled fleet\'s {i} '
+                                 f'differs from tick 1\'s')
+    return counts
+
+
 def _async_path(card, applies, cpu_diffs):
     """Phase 4c: ``apply_general_block_async`` over two blocks of the
     long-text phase on a card store (after the sync load), then
@@ -2347,41 +2668,64 @@ def _kernel_calls(key, kind, args):
                 mask, str(key))
         flags = (visible.to(torch.bool).contiguous(),
                  valid.to(torch.bool).contiguous())
-        # the narrow kernels sort inside, as their plain versions do; the
-        # wide kernel takes the PyTorch child sort's output
+        # the narrow and wide kernels sort inside, as their plain versions
+        # do; the grid kernel takes the PyTorch child sort's output
         c['kernel_plain'] = c['plain']
+        raw = [t.to(i32).contiguous() for t in (parent, elem, actor)]
+        an = None if anchor is None else anchor.to(i32).contiguous()
+
+        def wide(force=None):
+            return lambda: cuda_sequence.rga_wide_cuda(
+                *raw, None if kind == 'delta' else flags[0], flags[1],
+                rounds=rounds, anchor=an, force=force)
+
+        def grid_step():
+            srt = [t.to(i32).contiguous() for t in sequence._child_sort(
+                parent, elem, actor, valid, anchor)]
+            return cuda_sequence.order_from_sorted_cuda(
+                *srt, *flags, rounds=rounds)
         if key[1:] == ('order', 'narrow'):
-            raw = [t.to(i32).contiguous() for t in (parent, elem, actor)]
             c['kernel'] = lambda: cuda_sequence.rga_order_cuda(
                 *raw, *flags, rounds=rounds)
-        elif key[1] == 'delta':
-            raw = [t.to(i32).contiguous()
-                   for t in (parent, anchor, elem, actor)]
+        elif key[1] == 'delta' and key[2] in ('narrow', 'subwarp'):
             c['kernel'] = lambda: cuda_sequence.rga_delta_cuda(
-                *raw, flags[1], rounds=rounds, force=key[2])
+                raw[0], an, raw[1], raw[2], flags[1], rounds=rounds,
+                force=key[2])
             # the one-warp-a-row delta mode beside the subwarp variant
             if key[2] == 'subwarp':
                 c['extra']['narrow'] = lambda: cuda_sequence.rga_delta_cuda(
-                    *raw, flags[1], rounds=rounds, force='narrow')
+                    raw[0], an, raw[1], raw[2], flags[1], rounds=rounds,
+                    force='narrow')
+        elif key[2] in ('wide', 'wide-global'):
+            c['kernel'] = wide(key[2])
+            # beside it: the grid variant after the PyTorch child sort
+            # (timed with its sort)
+            if cuda_grid.fits(K, K * (m + 1)):
+                c['extra']['sort+wide-grid'] = grid_step
         else:
             srt = [t.to(i32).contiguous() for t in sequence._child_sort(
                 parent, elem, actor, valid, anchor)]
             c['kernel'] = lambda: cuda_sequence.order_from_sorted_cuda(
                 *srt, *flags, rounds=rounds)
-            # the other wide variant: one block per row beside the grid
-            other = 'wide' if key[2] == 'wide-grid' else 'wide-grid'
-            if other == 'wide' or cuda_grid.fits(K, K * (m + 1)):
-                c['extra'][other] = \
-                    lambda: cuda_sequence.order_from_sorted_cuda(
-                        *srt, *flags, rounds=rounds, force=other)
+            # one block a row beside the grid: the wide kernel (its sort
+            # inside)
+            c['extra']['wide'] = wide()
             c['kernel_plain'] = lambda: sequence._order_from_sorted_plain(
                 *srt, *flags)
         # the delta mode reads four int32 planes and valid, and writes
         # tree_pos; the rebuild modes read three int32 planes (or the
         # sorted order, parent_adj and parent) and two bool planes, and
-        # write three int32 planes and the lengths
-        c['bytes'] = K * m * (4 * 4 + 1 + 4) if key[1] == 'delta' else \
-            K * m * (4 * 3 + 2 + 12) + K * 4
+        # write three int32 planes and the lengths. The wide kernel needs
+        # only a padded row's valid bytes past its extent (its outputs
+        # there are fixed), so its bound counts the other inputs over
+        # the extents of this input's rows
+        if key[2] in ('wide', 'wide-global'):
+            slots = int(cuda_sequence.wide_extent(parent, valid).sum())
+            c['bytes'] = K * m + slots * (16 if key[1] == 'delta' else 13) \
+                + (K * m * 4 if key[1] == 'delta' else K * m * 12 + K * 4)
+        else:
+            c['bytes'] = K * m * (4 * 4 + 1 + 4) if key[1] == 'delta' else \
+                K * m * (4 * 3 + 2 + 12) + K * 4
         c['shape'] = f'K={K} m={m}'
     else:
         a, kw = args
@@ -3477,6 +3821,7 @@ def main():
     long_counts, long_applies, long_diffs = _long_text_path(card, inputs)
     _async_path(card, long_applies, long_diffs)
 
+
     # ---- 4d-4f. config 5 over the wire, config 4, the facade ----
     with tempfile.TemporaryDirectory() as workdir:
         wire_counts = _wire_fleet_path(card, ticks, ids, cds, sub, inputs,
@@ -3489,6 +3834,12 @@ def main():
 
     # ---- 4h. the JAX package's behavioural suites on the card ----
     conformance_counts = _conformance_path(card, inputs)
+
+    # ---- 4i. a mixed tick: small lists beside page-length texts ----
+    t0 = time.perf_counter()
+    mixed_counts = _mixed_tick_path(card, inputs)
+    print(f'phase 4i ({card}): {time.perf_counter() - t0:.1f} s',
+          flush=True)
 
     # ---- 5. the per-doc device backend: DeviceDocSet at config-5 size ----
     dds_counts = _device_doc_set_path(card, n_docs, list_ops, inputs)
@@ -3506,10 +3857,10 @@ def main():
 
     # ---- 7. the kernels at the main paths' inputs ----
     launched = {}
-    for counts in (main_counts, long_counts['launches'], wire_counts,
-                   text_counts, facade_counts, baseline_counts,
-                   conformance_counts, dds_counts, fleet_counts,
-                   mesh_counts):
+    for counts in (main_counts, long_counts['launches'], mixed_counts,
+                   wire_counts, text_counts, facade_counts,
+                   baseline_counts, conformance_counts, dds_counts,
+                   fleet_counts, mesh_counts):
         for key, n in counts.items():
             launched[key] = launched.get(key, 0) + n
     # the widths the delta orderer was handed, over every call the paths

@@ -115,12 +115,19 @@ def test_dispatch_bounds():
     (1, 49152, 'wide-grid'),        # the long text's rebuild arm
     (1, 65536, 'wide-grid'),        # config 4's bulk line
     (528, 4096, 'wide'),            # rows that fill the card
-    (528, 12799, 'wide'),
+    (528, 9771, 'wide'),
+    (528, 12799, 'wide-global'),
     (1, 8192, 'wide'),              # one short row: the block wins
-    (2, 10240, 'wide-grid'),
-    (3, 10240, 'wide'),
-    (8, 12799, 'wide-grid'),
-    (9, 12799, 'wide'),
+    (2, 10240, 'wide-global'),
+    (3, 10240, 'wide-global'),
+    (8, 12799, 'wide-global'),
+    (1, 14336, 'wide-global'),      # the bands' edges (PERF.md)
+    (1, 14337, 'wide-grid'),
+    (4, 16384, 'wide-grid'),
+    (5, 16384, 'wide-global'),
+    (8, 24576, 'wide-grid'),
+    (9, 24576, 'wide-global'),
+    (9, 12799, 'wide-global'),
     (32, 40000, 'wide-grid'),
     (132, 49152, 'wide-global'),    # past the cap, rows that fill it
     (32, 8388606, 'wide-grid'),     # one grid launch's last slots
@@ -136,8 +143,8 @@ def test_variant_at_the_main_paths_shapes(K, m, want):
 
 
 def test_variant_smem_fit_and_grid_bands():
-    assert cuda_sequence.wide_fits_smem(12799)
-    assert not cuda_sequence.wide_fits_smem(12800)
+    assert cuda_sequence.wide_fits_smem(9771)
+    assert not cuda_sequence.wide_fits_smem(9772)
     for bound, rows in cuda_sequence.GRID_BANDS:
         m = bound or 196608
         if rows:
@@ -253,17 +260,18 @@ def test_cuda_kernel_matches_plain(cuda_device, K, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m', [3070, 3071])
+@pytest.mark.parametrize('m', [2231, 2232])
 def test_cuda_wide_kernel_at_the_default_smem_edge(cuda_device, m):
-    """Widths whose four planes stay within 48 KB of dynamic shared
-    memory but pass it with the block scan's static storage: the launch
-    must opt in."""
+    """Widths on both sides of 48 KB of the wide kernel's dynamic
+    shared memory, both past it with the sort's static count table: the
+    launch must opt in."""
+    assert cuda_sequence.wide_smem_bytes(2231) <= 48 * 1024 < \
+        cuda_sequence.wide_smem_bytes(2232)
     planes = _card_planes('random', 4, m, cuda_device)
     want = sequence._rga_order_plain(*planes)
-    got = cuda_sequence.order_from_sorted_cuda(
-        *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
-        planes[3], planes[4], rounds=sequence._ceil_log2(m) + 1,
-        force='wide')
+    got = cuda_sequence.rga_wide_cuda(
+        *(t.to(torch.int32) for t in planes[:3]), planes[3], planes[4],
+        rounds=sequence._ceil_log2(m) + 1, force='wide')
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide'
     _same({k: v.cpu() for k, v in got.items()},
@@ -290,7 +298,7 @@ def test_cuda_dispatch_matches_plain(cuda_device, tree, i):
     expect = 'narrow' if m <= cuda_sequence.M_NARROW else \
         'wide-grid' if K <= cuda_grid.band_rows(cuda_sequence.GRID_BANDS,
                                                 m) else \
-        'wide-global' if m >= 12800 else 'wide'
+        'wide' if cuda_sequence.wide_fits_smem(m) else 'wide-global'
     assert cuda_sequence.variant(K, m) == cuda_sequence.last_variant == \
         expect
     _same({k: v.cpu() for k, v in got.items()},
@@ -309,9 +317,9 @@ def test_cuda_narrow_and_wide_match_plain(cuda_device, tree, m):
         *(t.to(torch.int32) for t in planes[:3]), planes[3], planes[4],
         rounds=rounds)
     assert cuda_sequence.last_variant == 'narrow'
-    wide = cuda_sequence.order_from_sorted_cuda(
-        *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
-        planes[3], planes[4], rounds=rounds)
+    wide = cuda_sequence.rga_wide_cuda(
+        *(t.to(torch.int32) for t in planes[:3]), planes[3], planes[4],
+        rounds=rounds)
     assert cuda_sequence.last_variant == 'wide'
     torch.cuda.synchronize()
     valid = planes[4].cpu()
@@ -338,7 +346,7 @@ def test_cuda_narrow_path_makes_no_sort(cuda_device, monkeypatch):
 # the grid variant's shapes: long single rows (config 4's replay at
 # 196,608, the long text's rebuild at 49,152), a few rows at 40,000,
 # and forced launches at widths the dispatch gives the wide variant
-GRID_SHAPES = [(1, 12800), (1, 49152), (1, 196608), (2, 40000), (5, 40000)]
+GRID_SHAPES = [(1, 16384), (1, 49152), (1, 196608), (2, 40000), (5, 40000)]
 
 
 @pytest.mark.cuda
@@ -367,8 +375,7 @@ def test_cuda_grid_forced_matches_plain(cuda_device, tree, K, m):
     want = sequence._rga_order_plain(*planes)
     got = cuda_sequence.order_from_sorted_cuda(
         *(t.to(torch.int32) for t in _sorted_inputs(planes)[:3]),
-        planes[3], planes[4], rounds=sequence._ceil_log2(m) + 1,
-        force='wide-grid')
+        planes[3], planes[4], rounds=sequence._ceil_log2(m) + 1)
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide-grid'
     _same({k: v.cpu() for k, v in got.items()},
@@ -396,7 +403,7 @@ def test_cuda_delta_dispatch_matches_plain(cuda_device, K, m):
     got = sequence._rga_delta_order_batched(*planes)
     torch.cuda.synchronize()
     v = cuda_sequence.delta_variant(K, m)
-    key = ('delta' if v in ('narrow', 'subwarp') else 'order', v)
+    key = ('order' if v == 'wide-grid' else 'delta', v)
     assert cuda_sequence.last_variant == v
     assert cuda_sequence.launches[key] == before.get(key, 0) + 1
     valid = planes[4]
@@ -520,8 +527,7 @@ def test_cuda_grid_refuses_past_its_rows(cuda_device):
     before = dict(cuda_sequence.launches)
     with pytest.raises(ValueError):
         cuda_sequence.order_from_sorted_cuda(*srt, planes[3], planes[4],
-                                             rounds=rounds,
-                                             force='wide-grid')
+                                             rounds=rounds)
     assert cuda_sequence.launches == before
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()

@@ -171,11 +171,9 @@ def test_cuda_wide_global_rga_at_the_perf_traces_width(cuda_device):
     got = sequence._rga_order_batched(*planes)
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide-grid'
-    srt = [t.to(torch.int32) for t in sequence._child_sort(
-        planes[0], planes[1], planes[2], planes[4])]
-    wide = cuda_sequence.order_from_sorted_cuda(
-        *srt, planes[3], planes[4],
-        rounds=sequence._ceil_log2(196608) + 1, force='wide')
+    wide = cuda_sequence.rga_wide_cuda(
+        *(t.to(torch.int32) for t in planes[:3]), planes[3], planes[4],
+        rounds=sequence._ceil_log2(196608) + 1, force='wide-global')
     torch.cuda.synchronize()
     assert cuda_sequence.last_variant == 'wide-global'
     valid = planes[4]

@@ -29,8 +29,9 @@ inputs in turns — base, this tree, this tree, base — with 5 timings of
   at D*N = 1,310,720 ops, the map batch's size.
 - ``rga_order`` and ``edit_stream``: the inputs of a ``--docs``-document
   config-5 fleet, two ticks (``chip_smoke.py`` phase 4); each kernel
-  alone, as above. Then the RGA order's narrow and wide variants at m in
-  {64, 128, 256, 512} (kernel alone and step, random trees) and the edit
+  alone, as above. Then the RGA order's narrow and wide kernels (both
+  sort inside) at m in {64, 128, 256, 512} (from a graph and eagerly,
+  random trees) and the edit
   stream's warp and block variants at m in {64, 256, 512, 1024, 4096}
   (packed, e_pad 64), each at K*m = 786,432 nodes.
 - ``--single-row`` (that lane alone): the grid variants of the RGA order
@@ -68,6 +69,28 @@ inputs in turns — base, this tree, this tree, base — with 5 timings of
   Then the crossover table behind ``cuda_sequence.M_SUBWARP``: subwarp
   against narrow at every m up to 32, K in ``DELTA_CROSS_K``, on seeded
   delta forests.
+
+- ``--wide``: the wide RGA kernel (one block a row, its child sort
+  inside) against the base's whole step for those rows: the PyTorch
+  child sort (``sequence._child_sort``) and the base's one-block kernel
+  (``rga_order_launch``, which the base must have). At phase 4h's K =
+  1, m = 3,072 (a full random row), at ``chip_smoke.py`` phase 4i's tick
+  1 (its captured planes: 2,048 rows at m = 6,144, 128 texts and 1,920
+  padded lists), at 132 full random rows of m = 8,192 and at 132 full
+  prepend rows of m = 8,192 (one sort bucket of 8,191 siblings), each
+  checked equal first: the two steps in turns from a graph and eagerly,
+  then the step's parts (the sort alone, the base kernel alone on a
+  sort made once), each with its byte bound at 3.35 TB/s. Then the
+  crossover tables behind ``cuda_sequence.GRID_BANDS`` and
+  ``DELTA_GRID_BANDS``, rerun with the
+  wide kernel as the one-block-a-row side: the wide kernel against the
+  PyTorch sort + grid variant, whole steps from a graph, at K in
+  ``WIDE_CROSS_K`` x m in ``WIDE_CROSS_M``, in both modes (the order on
+  random trees; the delta mode on delta forests, the anchor plane to
+  the wide kernel and as a sort key; 8 rows tiled to K), printed as the
+  ratio of the medians (above 1 the grid step wins) with, for each m,
+  the most rows at which the grid step won and the rows the bands send
+  to it.
 
 Prints one line per comparison (median, min and max of the 10 timings of
 each side) and writes them all, with the card's name and power limit, to
@@ -398,34 +421,21 @@ def ab_sequence(args, base, results):
 
     rng = np.random.default_rng(5)
     if 'rga_order' in base:
-        w_launch = cuda_build.load('rga_order', 'rga_order_launch',
-                                   cuda_sequence._ARGTYPES)
         for mw in (64, 128, 256, 512):
             Kw = NODES // mw
             raw = [torch.as_tensor(p).to(dev)
                    for p in chip_smoke.random_trees(rng, Kw, mw)]
+            raw = [t.to(I32) for t in raw[:3]] + raw[3:]
             rounds = sequence._ceil_log2(mw) + 1
-            srt = [t.to(I32).contiguous() for t in sequence._child_sort(
-                raw[0], raw[1], raw[2], raw[4])]
-            o_n, o_w = rga_out(Kw, mw), rga_out(Kw, mw)
-            in_turns(f'rga_order variants, kernel alone, K={Kw} m={mw}',
-                     'narrow', lambda: _check(n_rga(
-                         *_ptrs(raw), *_ptrs(o_n), Kw, mw, rounds,
-                         _stream())),
-                     'wide', lambda: _check(w_launch(
-                         *_ptrs(srt), *_ptrs(raw[3:]), *_ptrs(o_w), 0, Kw,
-                         mw, rounds, _stream())), 'graph', results)
-
-            def wide_step():
-                o, p, q = sequence._child_sort(raw[0], raw[1], raw[2],
-                                               raw[4])
-                return cuda_sequence.order_from_sorted_cuda(
-                    o.to(I32), p.to(I32), q.to(I32), raw[3], raw[4],
-                    rounds=rounds)
-            in_turns(f'rga_order variants, step, K={Kw} m={mw}',
-                     'narrow', lambda: cuda_sequence.rga_order_cuda(
-                         *raw, rounds=rounds),
-                     'sort + wide', wide_step, 'eager', results)
+            for timing in ('graph', 'eager'):
+                # both sort inside, so a kernel alone is the whole step
+                in_turns(f'rga_order variants, K={Kw} m={mw}, {timing}',
+                         'narrow',
+                         lambda: cuda_sequence.rga_order_cuda(
+                             *raw, rounds=rounds),
+                         'wide', lambda: cuda_sequence.rga_wide_cuda(
+                             *raw, rounds=rounds, force='wide'), timing,
+                         results)
     if 'edit_stream' in base:
         for mw in (64, 256, 512, 1024, 4096):
             Kw = NODES // mw
@@ -486,6 +496,14 @@ def capture_single_rows(ticks=8):
     return inputs
 
 
+def _base_scratch(K, m, dev):
+    """The global scratch of the base's one-block RGA kernel
+    (``rga_order_launch``): four planes of m + 1 words a row, which it
+    reads only where a row passes its own shared-memory cap."""
+    import torch
+    return torch.empty((K, 4 * (m + 1)), dtype=torch.int32, device=dev)
+
+
 def _rga_sides(base, srt, flags, K, m):
     """(the base's one-block-per-row kernel, this tree's grid variant) on
     sorted planes ``srt`` and ``flags``, each on its own outputs and
@@ -506,14 +524,13 @@ def _rga_sides(base, srt, flags, K, m):
                 for _ in range(3)] + [torch.empty(K, dtype=torch.int32,
                                                   device=dev)]
     o_b, o_n = outs(), outs()
-    s_b = torch.empty((K, 4 * (m + 1)), dtype=torch.int32, device=dev) \
-        if not cuda_sequence.wide_fits_smem(m) else None
+    s_b = _base_scratch(K, m, dev)
     s_n = torch.empty(words, dtype=torch.int32, device=dev)
     ins = _ptrs(srt) + _ptrs(flags)
 
     def b():
-        _check(b_fn(*ins, *_ptrs(o_b), 0 if s_b is None else s_b.data_ptr(),
-                    K, m, rounds, _stream()))
+        _check(b_fn(*ins, *_ptrs(o_b), s_b.data_ptr(), K, m, rounds,
+                    _stream()))
 
     def n():
         _check(n_fn(*ins, *_ptrs(o_n), s_n.data_ptr(), K, m, rounds,
@@ -890,6 +907,207 @@ def ab_delta(args, base, results):
     results['delta crossover (subwarp / narrow)'] = table
 
 
+# the wide kernel's crossover table against the grid step (GRID_BANDS)
+WIDE_CROSS_K = (1, 2, 4, 8, 32, 132)
+WIDE_CROSS_M = (4096, 8192, 10240, 12799, 14336, 16384, 24576, 32768,
+                49152)
+
+
+def _full_rows(gen, rng, K, m, distinct=8):
+    """``K`` rows of ``m`` valid nodes: the first (full) row of
+    ``distinct`` draws of ``gen``, tiled."""
+    import torch
+    rows = [gen(rng, 1, m) for _ in range(distinct)]
+    planes = [np.concatenate([r[i] for r in rows]) for i in range(5)]
+    return [_tile(torch.as_tensor(p).to('cuda'), K) for p in planes]
+
+
+def capture_mixed_tick():
+    """The wide RGA kernel's input on ``chip_smoke.py`` phase 4i's tick 1
+    (its 1,920 lists and 128 texts through ``GeneralDocSet``)."""
+    import torch
+    from automerge_tpu_torch.sync.general_doc_set import GeneralDocSet
+    n_small, n_text = chip_smoke.MIXED_SMALL, chip_smoke.MIXED_TEXTS
+    docs = chip_smoke.gen_mixed_docs(n_small, chip_smoke.MIXED_LIST_OPS)
+    docs += chip_smoke.gen_text_docs(n_text, doc0=n_small)[0]
+    ids = [f'mixed{d}' for d in range(n_small + n_text)]
+    cap = {}
+    with chip_smoke._capturing(cap):
+        gds = GeneralDocSet(len(ids), device='cuda')
+        gds.apply_changes_batch(dict(zip(ids, docs)))
+        torch.cuda.synchronize()
+    return cap[('rga_order', 'order', 'wide')][0][1]
+
+
+def _wide_bytes(raw):
+    """(the bytes one call must move over every slot, and over the valid
+    extents only: the wide kernel reads a padded row's valid bytes and
+    writes its fixed outputs past its extent)."""
+    from automerge_tpu_torch.device import cuda_sequence
+    K, m = raw[0].shape
+    out = K * m * 12 + K * 4
+    ext = int(cuda_sequence.wide_extent(raw[0], raw[4]).sum())
+    return K * m * 14 + out, K * m + ext * 13 + out
+
+
+def _wide_sides(base, raw):
+    """The base's step (the PyTorch child sort, then its one-block
+    kernel), the sort alone, the base kernel alone on a sort made once,
+    and this tree's wide kernel, on raw planes ``raw``; each on its own
+    outputs. Returns (step, sort, kernel, wide, the step's outputs, the
+    wide kernel's)."""
+    import torch
+    from automerge_tpu_torch.device import cuda_sequence, sequence
+    I32 = torch.int32
+    K, m = raw[0].shape
+    rounds = sequence._ceil_log2(m) + 1
+    b_fn = _bind(base, 'rga_order_launch', cuda_sequence._ARGTYPES)
+
+    def outs():
+        return [torch.empty((K, m), dtype=I32, device='cuda')
+                for _ in range(3)] + [torch.empty(K, dtype=I32,
+                                                  device='cuda')]
+    o_b, o_k = outs(), outs()
+    s_b = _base_scratch(K, m, 'cuda')
+
+    def sort():
+        return [t.to(I32).contiguous() for t in sequence._child_sort(
+            raw[0], raw[1], raw[2], raw[4])]
+    once = sort()
+
+    def launch(srt, o):
+        _check(b_fn(*_ptrs(srt), *_ptrs(raw[3:]), *_ptrs(o),
+                    s_b.data_ptr(), K, m, rounds, _stream()))
+    out = {}
+
+    def wide():
+        out['wide'] = cuda_sequence.rga_wide_cuda(*raw, rounds=rounds)
+    wide()
+    return (lambda: launch(sort(), o_b), sort, lambda: launch(once, o_k),
+            wide, o_b, out)
+
+
+def ab_wide(args, base, results):
+    """The wide kernel against the base's sort + one-block step at four
+    inputs, then the crossover table behind ``GRID_BANDS``."""
+    import torch
+    I32 = torch.int32
+    rng = np.random.default_rng(14)
+    shapes = [
+        ('phase 4h K=1 m=3072', _full_rows(chip_smoke.random_trees, rng, 1,
+                                           3072)),
+        ('phase 4i tick 1', capture_mixed_tick()),
+        ('132 full rows m=8192', _full_rows(chip_smoke.random_trees, rng,
+                                            132, 8192)),
+        ('prepend, 132 full rows m=8192',
+         _full_rows(chip_smoke.prepend_trees, rng, 132, 8192))]
+    for label, planes in shapes:
+        raw = [t.to(I32).contiguous() for t in planes[:3]] + \
+            [t.to(torch.bool).contiguous() for t in planes[3:]]
+        K, m = raw[0].shape
+        step, sort, kernel, wide, o_b, out = _wide_sides(base, raw)
+        step()
+        torch.cuda.synchronize()
+        valid = raw[4]
+        w = out['wide']
+        _same([o_b[0][valid], *o_b[1:]],
+              [w['tree_pos'][valid], w['vis_index'], w['node_at_pos'],
+               w['length']], f'wide {label}')
+        full, ext = _wide_bytes(raw)
+        label = f'rga_order wide, {label} (K={K} m={m})'
+        for timing in ('graph', 'eager'):
+            in_turns(f'{label}, {timing}', 'base sort + one-block kernel',
+                     step, 'this tree wide', wide, timing, results)
+            in_turns(f'{label}, the base step\'s parts, {timing}',
+                     'base sort', sort, 'base kernel alone', kernel,
+                     timing, results)
+        results[f'{label}, bound'] = {
+            'bytes_every_slot': full, 'bytes_valid_extent': ext,
+            'bound_ms_every_slot': full / chip_smoke._HBM_BYTES_PER_S * 1e3,
+            'bound_ms_valid_extent': ext / chip_smoke._HBM_BYTES_PER_S * 1e3}
+        print(f'{label}: bound {full / chip_smoke._HBM_BYTES_PER_S * 1e3:.5f}'
+              f' ms over every slot ({full} B), '
+              f'{ext / chip_smoke._HBM_BYTES_PER_S * 1e3:.5f} ms over the '
+              f'valid extents ({ext} B), at 3.35 TB/s', flush=True)
+        del step, sort, kernel, wide, o_b, out, raw, planes
+        torch.cuda.empty_cache()
+
+    for mode in ('order', 'delta'):
+        _wide_crossover(mode, rng, results)
+
+
+def _wide_crossover(mode, rng, results):
+    """The crossover table behind ``cuda_sequence.GRID_BANDS`` (the
+    delta mode: ``DELTA_GRID_BANDS``) in one mode: the wide kernel against the PyTorch sort + grid step, whole
+    steps from a graph, on 8 seeded rows tiled to K (``'order'``: random
+    trees, every output compared; ``'delta'``: delta forests, the anchor
+    plane to the wide kernel and as a sort key, tree_pos compared)."""
+    import torch
+    from automerge_tpu_torch.device import cuda_grid, cuda_sequence
+    from automerge_tpu_torch.device import sequence
+    I32 = torch.int32
+    delta = mode == 'delta'
+    table = {}
+    for m in WIDE_CROSS_M:
+        gen = chip_smoke.delta_forests if delta else chip_smoke.random_trees
+        rows = [torch.as_tensor(p).to('cuda') for p in gen(rng, 8, m)]
+        rounds = sequence._ceil_log2(m) + 1
+        for K in WIDE_CROSS_K:
+            if not cuda_grid.fits(K, K * (m + 1)):
+                continue
+            planes = [_tile(t, K) for t in rows]
+            valid = planes[4]
+            if delta:
+                parent, anchor, elem, actor = (t.to(I32)
+                                               for t in planes[:4])
+                flags = (valid, valid)
+            else:
+                parent, elem, actor = (t.to(I32) for t in planes[:3])
+                anchor, flags = None, (planes[3], valid)
+
+            def grid_step():
+                srt = [t.to(I32).contiguous() for t in sequence._child_sort(
+                    parent, elem, actor, valid, anchor)]
+                return cuda_sequence.order_from_sorted_cuda(
+                    *srt, *flags, rounds=rounds)
+
+            def wide():
+                return cuda_sequence.rga_wide_cuda(
+                    parent, elem, actor, None if delta else flags[0], valid,
+                    rounds=rounds, anchor=anchor)
+            a, b = wide(), grid_step()
+            if delta:
+                _same([a[valid]], [b['tree_pos'][valid]],
+                      f'wide delta crossover K={K} m={m}')
+            else:
+                _same([a['tree_pos'][valid], a['vis_index'],
+                       a['node_at_pos']],
+                      [b['tree_pos'][valid], b['vis_index'],
+                       b['node_at_pos']], f'wide crossover K={K} m={m}')
+            label = f'rga_order wide {mode} crossover K={K} m={m}'
+            in_turns(label, 'wide', wide, 'sort+wide-grid', grid_step,
+                     'graph', results, iters=10 if K * m > 2_000_000 else 50)
+            e = results[label]
+            table[f'{K},{m}'] = e['wide']['median_ms'] / \
+                e['sort+wide-grid']['median_ms']
+            del planes, valid, parent, elem, actor, anchor, flags, a, b
+        torch.cuda.empty_cache()
+    results[f'wide {mode} crossover (wide / sort+wide-grid)'] = table
+    print(f'wide {mode} crossover, the wide kernel\'s median over the sort '
+          f'+ grid step\'s (above 1 the grid step wins):', flush=True)
+    print(f'{"m":>6} ' + ' '.join(f'K={K:<4}' for K in WIDE_CROSS_K)
+          + '  grid won through  bands', flush=True)
+    for m in WIDE_CROSS_M:
+        r = [table.get(f'{K},{m}') for K in WIDE_CROSS_K]
+        won = max([K for K, x in zip(WIDE_CROSS_K, r)
+                   if x is not None and x > 1] or [0])
+        band = cuda_grid.band_rows(cuda_sequence.DELTA_GRID_BANDS if delta
+                                   else cuda_sequence.GRID_BANDS, m)
+        print(f'{m:>6} ' + ' '.join('   -  ' if x is None else f'{x:6.2f}'
+                                    for x in r)
+              + f'  {won:>17}  {band:>5}', flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--base', default=os.path.join(ROOT, '_archive', 'base'))
@@ -905,6 +1123,10 @@ def main():
     ap.add_argument('--delta', action='store_true',
                     help='the delta mode\'s subwarp variant against the '
                          'base\'s delta launch, then its crossover table')
+    ap.add_argument('--wide', action='store_true',
+                    help='the wide RGA kernel against the base\'s sort + '
+                         'one-block step, then the crossover table behind '
+                         'GRID_BANDS')
     ap.add_argument('--out', default=os.path.join(
         ROOT, 'automerge_tpu_torch', '_build', 'kernel_ab.json'))
     args = ap.parse_args()
@@ -915,10 +1137,11 @@ def main():
     from automerge_tpu_torch.device import cuda_build
     card = chip_smoke._card_line()
     print(card, flush=True)
-    lanes = args.single_row or args.split or args.delta
+    lanes = args.single_row or args.split or args.delta or args.wide
     names = ['rga_order', 'edit_stream'] if args.single_row else []
     names += ['flatmap_resolve'] if args.split else []
-    names += ['rga_order'] if args.delta and not args.single_row else []
+    names += ['rga_order'] if (args.delta or args.wide) and \
+        not args.single_row else []
     names = names if lanes else args.kernels
     cuda_build.build_all(names, force=True)
     base = build_base(args.base, names)
@@ -930,6 +1153,8 @@ def main():
         ab_split(args, base['flatmap_resolve'], results)
     if args.delta:
         ab_delta(args, base['rga_order'], results)
+    if args.wide:
+        ab_wide(args, base['rga_order'], results)
     if not lanes and 'flatmap_resolve' in base:
         ab_flatmap(args, base['flatmap_resolve'], results)
     if not lanes and ('rga_order' in base or 'edit_stream' in base):
