@@ -2622,13 +2622,20 @@ class GeneralPatch:
     """Patches from one general apply. The winner/visibility-dependent
     columns live on DEVICE until first use (`_ensure`) — an apply-only
     pipeline (the DocSet ingestion hot path) never fetches them;
-    `diffs(d)` / `to_patches()` materialize reference-format dicts."""
+    `diffs(d)` / `to_patches()` materialize reference-format dicts.
+
+    The first read also indexes the tick by document (`_index_docs`,
+    once per patch): document d's creates, map-field rows and dirty
+    sequence objects, each in the order the whole-tick scan met them.
+    A hub reads every touched document of a tick, so `diffs(d)` touches
+    d's own rows only and the tick's read stays linear in the
+    documents."""
 
     __slots__ = ('store', 'n_docs', 'creates', 'f_doc', 'f_obj', 'f_key',
                  'f_kind', 'f_has_winner', 'f_value', 'f_actor', 'f_link',
                  's_ptr', 's_actor', 's_value', 's_link', 'seq_edits',
                  'clock_rows', 'keys', 'values', 'actors', '_raw',
-                 '_ready', '__weakref__')
+                 '_ready', '_by_doc', '__weakref__')
 
     def __init__(self, store):
         self.store = store
@@ -2651,6 +2658,7 @@ class GeneralPatch:
         sharers.add(self)
         self._raw = None
         self._ready = True       # empty patches need no device fetch
+        self._by_doc = None      # doc -> its rows (`_index_docs`)
 
     def block_until_ready(self):
         """Wait for the full apply: device program AND the deferred
@@ -2881,10 +2889,12 @@ class GeneralPatch:
                     'set_idx': new_idx[set_cols],
                     'set_fis': fis_of(set_nodes, lo, span),
                 }
+        self._index_docs()
         # patch-read closes the tick path: one device fetch + the
-        # winner-dependent column build, measured as a completed span
-        # (the read may run on a different thread than the apply —
-        # span_event parents it under whatever span that thread holds)
+        # winner-dependent column build + the by-document index,
+        # measured as a completed span (the read may run on a different
+        # thread than the apply — span_event parents it under whatever
+        # span that thread holds)
         dt_ms = (time.perf_counter() - _t0) * 1e3
         metrics.observe('general_patch_read_ms', dt_ms)
         # the device-phase series fleet_status()['latency'] reports
@@ -2893,7 +2903,42 @@ class GeneralPatch:
         metrics.observe('device_patch_read_ms', dt_ms)
         if metrics.active:
             metrics.span_event('device.patch_read', dt_ms,
-                               fields=F)
+                               fields=F, docs=len(self._by_doc))
+
+    def _index_docs(self):
+        """Index the tick by document, once per patch, in O(F + creates
+        + dirty objects): ``_by_doc[d]`` is ``(creates, map-field rows,
+        dirty sequence rows)`` of document d, the creates in op order,
+        the field rows ascending (one stable sort of `f_doc`; element
+        fields are left out, `seq_edits` carries them) and the sequence
+        rows in `seq_edits` order. A document the tick left alone has
+        no entry."""
+        by_doc = {}
+        none = np.zeros(0, np.int64)
+
+        def slot(d):
+            s = by_doc.get(d)
+            if s is None:
+                s = by_doc[d] = ([], none, [])
+            return s
+
+        mf = np.flatnonzero(~self.f_kind)
+        if len(mf):
+            docs = self.f_doc[mf]
+            o = np.argsort(docs, kind='stable')
+            rows, docs = mf[o], docs[o]
+            cut = np.flatnonzero(docs[1:] != docs[:-1]) + 1
+            lo = np.concatenate(([0], cut)).tolist()
+            hi = np.concatenate((cut, [len(rows)])).tolist()
+            for d, a, b in zip(docs[lo].tolist(), lo, hi):
+                by_doc[d] = ([], rows[a:b], [])
+        for c in self.creates:
+            slot(int(c[0]))[0].append(c)
+        obj_doc = self.store.obj_doc
+        for obj_row in self.seq_edits:
+            slot(int(obj_doc[obj_row]))[2].append(obj_row)
+        self._by_doc = by_doc
+        metrics.bump('general_patch_index_builds')
 
     def _plain_mask(self, fis):
         """Fields whose payload is a bare value (no link flag, no
@@ -2925,52 +2970,89 @@ class GeneralPatch:
                 conflicts.append(entry)
         return value, bool(self.f_link[fi]), conflicts
 
-    def _path(self, obj_row):
+    def _path(self, obj_row, memo):
+        """The path of obj_row from its document's root (None if the
+        object is unreachable). ``memo`` maps each object already
+        resolved to its path, ancestors included; `diffs` hands in one
+        per call."""
+        if obj_row in memo:
+            return memo[obj_row]
+        with self.store._host_lock:
+            return self._path_locked(obj_row, memo)
+
+    def _path_locked(self, obj_row, memo):
+        # an object's path is its parent's plus one step: walk up to
+        # the root or to the first object the memo knows, then fill the
+        # memo back down. A step that fails (no inbound link, an
+        # invisible element, a cycle) makes this object and every one
+        # below it on the walk unreachable.
         store = self.store
         pool = store.pool
-        path = []
-        seen = set()
-        with store._host_lock:
-            return self._path_locked(store, pool, obj_row, path, seen)
-
-    def _path_locked(self, store, pool, obj_row, path, seen):
-        while store.obj_uuid[obj_row] != ROOT_ID:
-            if obj_row in seen:
-                return None
-            seen.add(obj_row)
+        chain, seen = [], set()
+        while obj_row not in memo:
+            if store.obj_uuid[obj_row] == ROOT_ID:
+                memo[obj_row] = []
+                break
             inbound = store.obj_inbound.get(obj_row)
-            if not inbound:
-                return None
+            if obj_row in seen or not inbound:
+                memo[obj_row] = None
+                break
+            seen.add(obj_row)
             parent_row, key = inbound[0]
             if store.is_seq(parent_row):
                 pool.sync()
                 node = int(key) & 0x7FFFFFFF
-                idx = int(pool.vis_index[pool.row_at(parent_row, node)])
-                if idx < 0:
-                    return None
-                path.insert(0, idx)
+                step = int(pool.vis_index[pool.row_at(parent_row, node)])
+                if step < 0:
+                    memo[obj_row] = None
+                    break
             else:
-                path.insert(0, store.keys[int(key) & 0x7FFFFFFF])
+                step = store.keys[int(key) & 0x7FFFFFFF]
+            chain.append((obj_row, step))
             obj_row = parent_row
+        path = memo[obj_row]
+        for child, step in reversed(chain):
+            if path is not None:
+                path = path + [step]
+            memo[child] = path
         return path
 
     def diffs(self, d):
+        """Document d's diffs in the reference's order: its creates,
+        its map-field edits, its sequence edits. Reads d's rows of the
+        by-document index only; a document the tick left alone costs
+        one dict lookup. Each object's path is resolved once per call
+        and shared by its diffs, and so is each ancestor's (a card's
+        walk stops at its list). Paths are not kept between calls:
+        `_path` reads the live store, and a later apply may move the
+        object."""
         self._ensure()
+        if self._by_doc is None:
+            self._index_docs()           # a patch with no device read
+        mine = self._by_doc.get(d)
+        if mine is None:
+            return []
+        creates, fis, seq_rows = mine
         store = self.store
-        out = []
-        for doc, uuid, tname, max_elem in self.creates:
-            if doc == d:
-                diff = {'action': 'create', 'obj': uuid, 'type': tname}
-                out.append(diff)
+        out = [{'action': 'create', 'obj': uuid, 'type': tname}
+               for _, uuid, tname, _ in creates]
+        walked = {}                      # obj_row -> path, ancestors too
+        paths = {}                       # the objects d's diffs name
+
+        def path_of(obj_row):
+            if obj_row not in paths:
+                paths[obj_row] = self._path(obj_row, walked)
+            return paths[obj_row]
+
         # map-field diffs
-        for fi in np.flatnonzero(self.f_doc == d):
-            obj_row = int(self.f_obj[fi])
-            if self.f_kind[fi]:
-                continue                      # element fields: seq edits
+        for fi, obj_row, fkey, has_winner in zip(
+                fis.tolist(), self.f_obj[fis].tolist(),
+                self.f_key[fis].tolist(),
+                self.f_has_winner[fis].tolist()):
             obj_uuid = store.obj_uuid[obj_row]
-            key = store.keys[int(self.f_key[fi]) & 0x7FFFFFFF]
-            path = self._path(obj_row)
-            if self.f_has_winner[fi]:
+            key = store.keys[fkey & 0x7FFFFFFF]
+            path = path_of(obj_row)
+            if has_winner:
                 value, link, conflicts = self._field_payload(fi)
                 edit = {'action': 'set', 'type': 'map', 'obj': obj_uuid,
                         'key': key, 'path': path, 'value': value}
@@ -2983,17 +3065,16 @@ class GeneralPatch:
                         'obj': obj_uuid, 'key': key, 'path': path}
             out.append(edit)
         # sequence edits
-        for obj_row, ed in self.seq_edits.items():
-            if store.obj_doc[obj_row] != d:
-                continue
-            out.extend(self._seq_diffs(obj_row, ed))
+        for obj_row in seq_rows:
+            out.extend(self._seq_diffs(obj_row, self.seq_edits[obj_row],
+                                       path_of(obj_row)))
+        metrics.bump('general_patch_paths_resolved', len(paths))
         return out
 
-    def _seq_diffs(self, obj_row, ed):
+    def _seq_diffs(self, obj_row, ed, path):
         store = self.store
         obj_uuid = store.obj_uuid[obj_row]
         tname = _TYPE_NAME[store.obj_type[obj_row]]
-        path = self._path(obj_row)
         diffs = []
         if ed['max_elem'] is not None:
             diffs.append({'action': 'maxElem', 'type': tname,

@@ -22,6 +22,10 @@ against the JAX package on the same changes.
   async apply rolls back while the store keeps serving.
 * ``set_doc`` adopts a frontend document through its backend (the
   oracle when it names none), as the reference does.
+* The patch read by document: on card lists and a text whose field rows
+  interleave documents, every ``diffs(d)`` (and the async apply's)
+  equals the JAX package's, an untouched document reads ``[]``, and the
+  program's counters show one index a patch and one path a named object.
 """
 
 import numpy as np
@@ -386,6 +390,174 @@ def test_set_doc_adopts_through_the_backend():
             ds.set_doc('b', F.init({'actorId': 'zz'}))
         errors.append((type(err.value), str(err.value)))
     assert errors[0] == errors[1]
+
+
+def _uuid(d, k):
+    return f'{d:08x}-0000-4000-8000-{k:012x}'
+
+
+def _card_ops(d, lst, actor, elem, prev, k, title):
+    """Insert card ``k`` (a map {title, done}) after ``prev`` in list
+    ``lst`` of document ``d``."""
+    card = _uuid(d, k)
+    return [{'action': 'ins', 'obj': lst, 'key': prev, 'elem': elem},
+            {'action': 'makeMap', 'obj': card},
+            {'action': 'set', 'obj': card, 'key': 'title', 'value': title},
+            {'action': 'set', 'obj': card, 'key': 'done', 'value': False},
+            {'action': 'link', 'obj': lst, 'key': f'{actor}:{elem}',
+             'value': card}]
+
+
+CARD_LISTS, TEXT_DOC, N_CARD_DOCS = (0, 1, 2, 3), 4, 5
+
+
+def _card_ticks():
+    """Three ticks of five documents. Tick 1 loads card lists (three
+    cards and a root key ``meta`` each) into docs 0-3 and a text into
+    doc 4. Tick 2 leaves doc 2 alone; in docs 0, 1 and 3 two writers
+    each insert a card, set the same title (a conflict), set and delete
+    fields, delete a card and set ``meta``, and doc 4 gets a keystroke
+    and a backspace: the tick's field rows interleave documents (new
+    cards get object rows after every loaded one), and doc 3's text
+    ``notes`` gets a keystroke too. Tick 3 only creates
+    objects, so its patch has no device read."""
+    t1, t2, t3 = ([[] for _ in range(N_CARD_DOCS)] for _ in range(3))
+    for d in CARD_LISTS:
+        lst = _uuid(d, 0)
+        ops = [{'action': 'makeList', 'obj': lst},
+               {'action': 'link', 'obj': ROOT_ID, 'key': 'cards',
+                'value': lst},
+               {'action': 'set', 'obj': ROOT_ID, 'key': 'meta', 'value': 0}]
+        prev = '_head'
+        for e in (1, 2, 3):
+            ops += _card_ops(d, lst, 'a', e, prev, e, f'card {e}')
+            prev = f'a:{e}'
+        t1[d] = [{'actor': 'a', 'seq': 1, 'deps': {}, 'ops': ops}]
+    txt = _uuid(TEXT_DOC, 0)
+    ops = [{'action': 'makeText', 'obj': txt},
+           {'action': 'link', 'obj': ROOT_ID, 'key': 't', 'value': txt}]
+    prev = '_head'
+    for e, ch in enumerate('hello', 1):
+        ops += [{'action': 'ins', 'obj': txt, 'key': prev, 'elem': e},
+                {'action': 'set', 'obj': txt, 'key': f'a:{e}', 'value': ch}]
+        prev = f'a:{e}'
+    t1[TEXT_DOC] = [{'actor': 'a', 'seq': 1, 'deps': {}, 'ops': ops}]
+    notes = _uuid(3, 30)               # doc 3 holds a text beside its list
+    t1[3][0]['ops'] += [
+        {'action': 'makeText', 'obj': notes},
+        {'action': 'link', 'obj': ROOT_ID, 'key': 'notes', 'value': notes},
+        {'action': 'ins', 'obj': notes, 'key': '_head', 'elem': 1},
+        {'action': 'set', 'obj': notes, 'key': 'a:1', 'value': 'n'}]
+    for d in (0, 1, 3):
+        lst = _uuid(d, 0)
+        b = _card_ops(d, lst, 'b', 4, 'a:1', 10, 'from b')
+        b += [{'action': 'set', 'obj': _uuid(d, 2), 'key': 'title',
+               'value': 'b2'},
+              {'action': 'del', 'obj': lst, 'key': 'a:3'},
+              {'action': 'set', 'obj': ROOT_ID, 'key': 'meta',
+               'value': d + 1}]
+        c = _card_ops(d, lst, 'c', 4, '_head', 11, 'from c')
+        c += [{'action': 'set', 'obj': _uuid(d, 2), 'key': 'title',
+               'value': 'c2'},
+              {'action': 'set', 'obj': _uuid(d, 1), 'key': 'done',
+               'value': True},
+              {'action': 'del', 'obj': _uuid(d, 1), 'key': 'title'}]
+        t2[d] = [{'actor': 'b', 'seq': 1, 'deps': {'a': 1}, 'ops': b},
+                 {'actor': 'c', 'seq': 1, 'deps': {'a': 1}, 'ops': c}]
+    t2[3][0]['ops'] += [
+        {'action': 'ins', 'obj': notes, 'key': 'a:1', 'elem': 5},
+        {'action': 'set', 'obj': notes, 'key': 'b:5', 'value': 'o'}]
+    t2[TEXT_DOC] = [{'actor': 'b', 'seq': 1, 'deps': {'a': 1}, 'ops': [
+        {'action': 'ins', 'obj': txt, 'key': 'a:5', 'elem': 6},
+        {'action': 'set', 'obj': txt, 'key': 'b:6', 'value': '!'},
+        {'action': 'del', 'obj': txt, 'key': 'a:2'}]}]
+    for d in (1, 3):
+        t3[d] = [{'actor': 'z', 'seq': 1, 'deps': {}, 'ops': [
+            {'action': 'makeMap', 'obj': _uuid(d, 20)}]}]
+    return t1, t2, t3
+
+
+def _counter(name):
+    return tmetrics.counters.get(name, 0)
+
+
+@pytest.mark.parametrize('edit_stream', [False, True])
+def test_patch_read_by_document_matches_jax(edit_stream, monkeypatch):
+    """Every document's diffs, each tick, equal the JAX package's list
+    for list and in order; an untouched document reads ``[]``; two
+    reads are equal but distinct; ``to_patches()`` is the per-document
+    ``patch(d)``; the async apply reads the same."""
+    monkeypatch.setattr(tg, '_EDIT_STREAM', edit_stream)
+    jst = jg.init_store(N_CARD_DOCS)
+    tst = tg.init_store(N_CARD_DOCS, device='cpu')
+    astore = tg.init_store(N_CARD_DOCS, device='cpu')
+    for i, batch in enumerate(_card_ticks()):
+        jp = jg.apply_general_block(jst, jst.encode_changes(batch))
+        tp = tg.apply_general_block(tst, tst.encode_changes(batch))
+        # read before the next apply: paths follow the live store
+        fut = tg.apply_general_block_async(
+            astore, tg.init_store(N_CARD_DOCS, device='cpu')
+            .encode_changes(batch))
+        want = [jp.diffs(d) for d in range(N_CARD_DOCS)]
+        assert [tp.diffs(d) for d in range(N_CARD_DOCS)] == want
+        assert [fut.diffs(d) for d in range(N_CARD_DOCS)] == want
+        assert tp.to_patches() == \
+            [tp.patch(d) for d in range(N_CARD_DOCS)] == jp.to_patches()
+        for d in range(N_CARD_DOCS):
+            if not batch[d]:
+                assert tp.diffs(d) == [] == want[d]
+        if i != 1:
+            continue
+        # tick 2: rows interleave documents, doc 2 is untouched, a read
+        # is a fresh list every time
+        assert (np.diff(tp.f_doc) < 0).any()
+        assert [int(tst.obj_doc[o]) for o in tp.seq_edits] == \
+            [0, 1, 3, 3, 4]
+        assert want[2] == []
+        first, again = tp.diffs(0), tp.diffs(0)
+        assert first == again == want[0] and first is not again
+        first[-1]['index'] = -1
+        first.clear()
+        assert again == tp.diffs(0) == want[0]
+    # tick 3 only creates: its patch had no device read
+    assert [c[0] for c in tp.creates] == [1, 3]
+    assert not len(tp.f_doc)
+    tg.close_general(astore)
+
+
+def test_patch_read_costs_follow_the_document():
+    """Counted, not timed: one by-document index per patch however many
+    reads, and one path per object a document's diffs name, not one per
+    field."""
+    ticks = _card_ticks()
+    store = tg.init_store(N_CARD_DOCS, device='cpu')
+    for batch in ticks[:2]:
+        patch = tg.apply_general_block(store, store.encode_changes(batch))
+    builds = _counter('general_patch_index_builds')
+    paths = _counter('general_patch_paths_resolved')
+    diffs = patch.diffs(0)
+    assert _counter('general_patch_index_builds') == builds + 1
+    mine = (patch.f_doc == 0) & ~patch.f_kind
+    objs = set(patch.f_obj[mine].tolist()) | {
+        o for o in patch.seq_edits if store.obj_doc[o] == 0}
+    assert len(objs) < int(mine.sum())        # objects with several fields
+    assert _counter('general_patch_paths_resolved') == paths + len(objs)
+    assert len({id(e['path']) for e in diffs if 'path' in e}) == len(objs)
+    for d in range(N_CARD_DOCS):
+        patch.diffs(d)
+    patch.to_patches()
+    assert _counter('general_patch_index_builds') == builds + 1
+    assert patch.diffs(2) == []
+    # an untouched document resolves no path
+    paths = _counter('general_patch_paths_resolved')
+    patch.diffs(2)
+    assert _counter('general_patch_paths_resolved') == paths
+    # a patch with no device read (tick 3 only creates) indexes once too
+    made = tg.apply_general_block(store, store.encode_changes(ticks[2]))
+    assert made.diffs(1) == [{'action': 'create', 'obj': _uuid(1, 20),
+                              'type': 'map'}]
+    made.to_patches()
+    assert _counter('general_patch_index_builds') == builds + 2
 
 
 @pytest.mark.cuda
